@@ -1,20 +1,24 @@
-"""Shared NN building blocks on NHWC tensors: spectral norm (eval form),
-instance norm and torch-parity resizing.
+"""Shared NN building blocks on NHWC tensors: spectral norm (eval and train
+forms), instance norm, torch-parity resizing and the discriminator's
+count-exclude average pool.
 
-Port of emlight_tpu/nn/layers.py:25-108. ``avg_pool_3x3s2`` is
-discriminator-only and waits for the GAN-training port.
+Port of emlight_tpu/nn/layers.py.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-__all__ = ["spectral_sigma", "spectral_normalize", "instance_norm", "resize_nearest",
-           "resize_bilinear", "full_f32_matmul", "dense"]
+__all__ = ["spectral_sigma", "spectral_normalize", "spectral_power_iteration", "l2_normalize",
+           "instance_norm", "resize_nearest", "resize_bilinear", "avg_pool_3x3s2",
+           "full_f32_matmul", "dense"]
 
 
 def dense(in_features: int, out_features: int,
@@ -43,6 +47,22 @@ def spectral_sigma(kernel: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> to
 def spectral_normalize(kernel: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """kernel / sigma, kernel with its output channel on the LAST axis."""
     return kernel / spectral_sigma(kernel, u, v)
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x / (torch.linalg.norm(x) + eps)
+
+
+@torch.no_grad()
+def spectral_power_iteration(kernel: torch.Tensor, u: torch.Tensor,
+                             eps: float = 1e-12) -> tuple[torch.Tensor, torch.Tensor]:
+    """One power iteration on the DETACHED kernel (output channel on the last
+    axis), torch.nn.utils.spectral_norm's train form: v = normalize(Wᵀu), then
+    u = normalize(W v). Returns the fresh (u, v); the caller stores them and
+    takes sigma = uᵀ W v with them, so the gradient flows through W only."""
+    wmat = kernel.detach().reshape(-1, kernel.shape[-1]).t()  # (out, rest)
+    v = l2_normalize(wmat.t() @ u, eps)
+    return l2_normalize(wmat @ v, eps), v
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -85,6 +105,30 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     rows = x[:, r0] * (1 - fr)[None, :, None, None] + x[:, r1] * fr[None, :, None, None]
     return (rows[:, :, c0] * (1 - fc)[None, None, :, None]
             + rows[:, :, c1] * fc[None, None, :, None])
+
+
+@functools.lru_cache(maxsize=None)
+def _pool_counts(h: int, w: int, device: str) -> torch.Tensor:
+    """(Ho, Wo, 1) count of the in-image taps of each 3x3/s2 window."""
+    def per_axis(n):
+        i = np.arange((n - 1) // 2 + 1)
+        return 3 - (i == 0) - (2 * i + 1 >= n)
+
+    cnt = np.outer(per_axis(h), per_axis(w)).astype(np.float32)[..., None]
+    return torch.from_numpy(cnt).to(device)
+
+
+def avg_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
+    """F.avg_pool2d(kernel 3, stride 2, padding 1, count_include_pad=False) on
+    NHWC — the multiscale discriminator's downsampler — computed as the JAX
+    package computes it: the sum of the 9 strided taps over the zero-padded
+    map, divided by the count of taps inside the image."""
+    _, h, w, _ = x.shape
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    s = sum(xp[:, dy:dy + 2 * ho - 1:2, dx:dx + 2 * wo - 1:2]
+            for dy in range(3) for dx in range(3))
+    return s / _pool_counts(h, w, str(x.device))
 
 
 @contextlib.contextmanager

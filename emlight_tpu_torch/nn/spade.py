@@ -1,4 +1,4 @@
-"""SPADE generator stack (EMLight stage 2 / GenProjector), eval only.
+"""SPADE generator stack (EMLight stage 2 / GenProjector).
 
 Port of emlight_tpu/nn/spade.py. Module and parameter names follow the JAX
 tree (train/jax_weights.py maps one onto the other); activations are NHWC,
@@ -8,7 +8,11 @@ the layout the sphere-conv kernel takes. Sphere-conv kernels stay HWIO
 As in the JAX package, each SPADEResnetBlock runs ONE fused ``mlp_shared``
 sphere conv for all of its norms (same resized guide, independent output
 channels) and each SPADE one fused ``mlp_gammabeta`` conv with 2C outputs.
-BatchNorm ("syncbatch"/"batch") uses its running statistics.
+
+Train mode (``.train()``) follows torch's and the JAX package's state
+dynamics: every forward updates the BatchNorm running statistics and the
+spectral-norm vectors u, v in place (emlight_tpu/train/projector.py:15-17).
+Eval mode uses the running statistics and the stored u, v verbatim.
 """
 
 from __future__ import annotations
@@ -22,10 +26,11 @@ import torch.nn.functional as F
 from .layers import (
     dense,
     instance_norm,
+    l2_normalize,
     resize_bilinear,
     resize_nearest,
     spectral_normalize,
-    spectral_sigma,
+    spectral_power_iteration,
 )
 from .sphere_conv import SphereConv2D, sphere_conv
 
@@ -33,23 +38,35 @@ __all__ = ["SNConv", "SNSphereConv", "SPADE", "SPADEResnetBlock", "ConvEncoder",
            "SPADEGenerator"]
 
 
-def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    return x / (torch.linalg.norm(x) + eps)
-
-
 def _register_uv(module: nn.Module, kernel_hwio: torch.Tensor,
                  generator: torch.Generator | None) -> None:
     """Spectral-norm vectors u (out,) and v (rest,) as buffers, initialised
     like the JAX package: u random, v = normalize(W^T u)."""
     out = kernel_hwio.shape[-1]
-    u = _l2_normalize(torch.randn(out, generator=generator))
-    v = _l2_normalize(kernel_hwio.detach().reshape(-1, out) @ u)
+    u = l2_normalize(torch.randn(out, generator=generator))
+    v = l2_normalize(kernel_hwio.detach().reshape(-1, out) @ u)
     module.register_buffer("u", u)
     module.register_buffer("v", v)
 
 
+def _sn_kernel(module: nn.Module, kernel_hwio: torch.Tensor) -> torch.Tensor:
+    """kernel / sigma for a kernel with its output channel on the last axis.
+
+    Train mode: one power iteration on the detached kernel, u and v updated
+    in place, sigma = uᵀ W v with the fresh vectors (gradient through W
+    only). Eval mode: the stored u and v verbatim.
+    """
+    if not module.training:
+        return spectral_normalize(kernel_hwio, module.u, module.v)
+    u, v = spectral_power_iteration(kernel_hwio, module.u)
+    with torch.no_grad():
+        module.u.copy_(u)
+        module.v.copy_(v)
+    return spectral_normalize(kernel_hwio, u, v)
+
+
 class SNConv(nn.Module):
-    """Standard conv with torch-style spectral norm (eval form) on NHWC maps.
+    """Standard conv with torch-style spectral norm on NHWC maps.
 
     ``weight`` is OIHW; sigma is taken over its (kh, kw, in) flattening, the
     order the stored v indexes (HWIO in the JAX package).
@@ -73,7 +90,7 @@ class SNConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # sigma over the HWIO view of the OIHW weight: v's (kh, kw, in) order
-        w = self.weight / spectral_sigma(self.weight.permute(2, 3, 1, 0), self.u, self.v)
+        w = _sn_kernel(self, self.weight.permute(2, 3, 1, 0)).permute(3, 2, 0, 1)
         cdt = self.compute_dtype
         # NHWC viewed as channels_last NCHW: no copy in or out
         y = F.conv2d(x.permute(0, 3, 1, 2).to(cdt), w.to(cdt), stride=self.stride,
@@ -85,7 +102,7 @@ class SNConv(nn.Module):
 
 
 class SNSphereConv(SphereConv2D):
-    """SphereConv2D with spectral norm (eval form); kernel HWIO."""
+    """SphereConv2D with spectral norm; kernel HWIO."""
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
                  use_bias: bool = True, compute_dtype: torch.dtype = torch.float32,
@@ -95,21 +112,34 @@ class SNSphereConv(SphereConv2D):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype
-        kernel = spectral_normalize(self.kernel, self.u, self.v)
+        kernel = _sn_kernel(self, self.kernel)
         return sphere_conv(x.to(cdt).contiguous(), kernel.to(cdt), self.bias, self.stride)
 
 
 class _ParamFreeBatchNorm(nn.Module):
-    """BatchNorm without affine, eval form: (x - mean) * rsqrt(var + eps)."""
+    """BatchNorm without affine on NHWC, flax.linen.BatchNorm's semantics.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    Eval: (x - running mean) * rsqrt(running var + eps). Train: the batch's
+    mean and biased variance over (B, H, W), and the running statistics
+    updated as r = momentum * r + (1 - momentum) * batch, with the BIASED
+    variance as flax keeps it (F.batch_norm would store the unbiased one).
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x - self.mean) * torch.rsqrt(self.var + self.eps)
+        if not self.training:
+            return (x - self.mean) * torch.rsqrt(self.var + self.eps)
+        var, mean = torch.var_mean(x, dim=(0, 1, 2), unbiased=False)
+        with torch.no_grad():
+            self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+            self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        return (x - mean) * torch.rsqrt(var + self.eps)
 
 
 class SPADE(nn.Module):
@@ -221,7 +251,8 @@ class SPADEGenerator(nn.Module):
 
     Encoder latent reshaped to (16nf, 1, 2) in NCHW order, nearest-resized to
     (sh, sw), 7 SPADE blocks with 5 nearest 2x upsamples, a SphereConv head,
-    (tanh+1)*25 HDR range. Eval only: with use_vae the latent is mu.
+    (tanh+1)*25 HDR range. With use_vae the latent is mu; use_vae training
+    (the reparameterized latent) is not ported.
     """
 
     def __init__(self, ngf: int = 64, norm_type: str = "syncbatch",
@@ -254,8 +285,8 @@ class SPADEGenerator(nn.Module):
         self.sphere_conv1 = SphereConv2D(final_nc, 3, **kw)
 
     def forward(self, guide: torch.Tensor, crop: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("SPADEGenerator is ported for eval only; call .eval()")
+        if self.training and self.use_vae:
+            raise NotImplementedError("use_vae training is not ported; call .eval()")
         nf = self.ngf
         z = self.netE(crop)
         if self.use_vae:

@@ -8,11 +8,13 @@ cached); the conv is 9 accumulated [weighted 4-neighbour gather -> (P, Cin) x
 
 Two implementations of one function:
 - ``sphere_conv_plain``: the gather formulation in plain PyTorch. It serves
-  CPU tensors and is the oracle the CUDA kernel is checked against.
-- ``nn/sphere_conv_kernel.py``: the hand-written stride-1 CUDA kernel.
+  CPU tensors and is the oracle the CUDA kernels are checked against.
+- ``nn/sphere_conv_kernel.py``: the hand-written CUDA kernels, forward at
+  stride 1 and 2 and the backward's dx and dK.
 
-``sphere_conv`` dispatches on the tensor's device: a CUDA tensor takes the
-kernel (every stride-1 conv, at every resolution) or raises.
+``sphere_conv`` runs through ``nn/sphere_conv_vjp.py::SphereConvFunction``,
+whose forward and backward dispatch on the tensor's device: a CUDA tensor
+takes the kernels (every conv, at every resolution) or raises.
 """
 
 from __future__ import annotations
@@ -142,20 +144,15 @@ def sphere_conv_plain(x: torch.Tensor, kernel: torch.Tensor,
 
 def sphere_conv(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None = None,
                 stride: int = 1) -> torch.Tensor:
-    """Sphere conv dispatched on the tensor's device.
+    """Differentiable sphere conv dispatched on the tensor's device.
 
-    Stride 1 goes through the kernel wrapper, which takes the CUDA kernel for
-    a CUDA tensor (at every resolution: no pixel gate) and the plain version
-    for a CPU tensor. Stride 2 has no kernel yet: plain on the CPU, an error
-    on CUDA.
+    Forward and backward take the CUDA kernels for a CUDA tensor (at every
+    resolution: no pixel gate) and the plain versions for a CPU tensor; see
+    ``SphereConvFunction``. Stride 1 or 2.
     """
-    if stride == 1:
-        from .sphere_conv_kernel import sphere_conv_s1
+    from .sphere_conv_vjp import SphereConvFunction
 
-        return sphere_conv_s1(x, kernel, bias)
-    if x.is_cuda:
-        raise NotImplementedError("stride-2 sphere conv kernel (B2) not ported yet")
-    return sphere_conv_plain(x, kernel, bias, stride)
+    return SphereConvFunction.apply(x, kernel, bias, stride)
 
 
 class SphereConv2D(nn.Module):

@@ -1,21 +1,29 @@
-"""Stride-1 sphere conv on the card: the structured tables and the wrapper
-around the hand-written CUDA kernel ``csrc/sphere_conv_s1.cu``.
+"""Sphere conv on the card: the structured tables and the wrappers around
+the hand-written CUDA kernels.
 
-Source note. The kernel replaces emlight_tpu/nn/sphere_conv_pallas.py::_kernel
-at stride 1 (TPU kernel B1). It exploits the structure of the gnomonic
-sampling pattern, verified here when the tables are built:
+Kernels (``KERNELS`` maps each wrapper to its TPU kernel and source):
+- ``sphere_conv_s1``    B1, forward at stride 1     (csrc/sphere_conv_s1.cu)
+- ``sphere_conv_s2``    B2, forward at stride 2     (csrc/sphere_conv_s2.cu)
+- ``sphere_conv_dx_s1`` B3, dx at stride 1          (csrc/sphere_conv_dx.cu)
+- ``sphere_conv_dx_s2`` B5, dx at stride 2          (csrc/sphere_conv_dx.cu)
+- ``sphere_conv_dk``    B4, dK at strides 1 and 2   (csrc/sphere_conv_dk.cu)
+
+Source note. The forward kernels replace
+emlight_tpu/nn/sphere_conv_pallas.py::_kernel. They exploit the structure of
+the gnomonic sampling pattern, verified here when the tables are built:
 - the sampled ROW of every (output row i, tap t, neighbour k) lies within
-  [i-2, i+1], so the sources of one output row are a 4-row halo;
+  [i-2, i+1] (stride 1), so the sources of one output row are a 4-row halo;
 - the sampled COLUMN is a constant circular shift s(i, t, k) of the output
-  column, so no per-pixel index is needed;
+  column (times the stride), so no per-pixel index is needed;
 - the bilinear weight is one scalar w0(i, t, k) for every column except at
   most one column jdev(i, t, k) where grid_sample's zero pad kills it.
-On an H100 the conv is bound by operations (f32 on the CUDA cores); the
-kernel stages the sampled operand in shared memory and computes the per-tap
-matmul there itself. See the .cu file's header for the design.
+On an H100 every one of them is bound by operations (f32 on the CUDA cores)
+at the model's widths; each computes its matmul in the kernel itself. See
+each .cu file's header for the design.
 
-A CPU tensor takes the plain version (nn/sphere_conv.py::sphere_conv_plain);
-a CUDA tensor takes the kernel or raises.
+A CPU tensor takes the plain version (nn/sphere_conv.py::sphere_conv_plain,
+nn/sphere_conv_vjp.py::dx_plain and dk_plain); a CUDA tensor takes the
+kernel or raises. Each wrapper counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -28,11 +36,23 @@ import torch
 
 from .sphere_conv import sphere_conv_plain, sphere_taps
 
-__all__ = ["structured_tables", "scalar_weight_tables", "sphere_conv_s1", "KERNEL_SOURCE",
-           "REPLACES"]
+__all__ = ["structured_tables", "scalar_weight_tables", "sphere_conv_s1", "sphere_conv_s2",
+           "sphere_conv_dx", "sphere_conv_dx_s1", "sphere_conv_dx_s2", "sphere_conv_dk",
+           "KERNELS"]
 
-KERNEL_SOURCE = "emlight_tpu_torch/csrc/sphere_conv_s1.cu"
-REPLACES = "emlight_tpu/nn/sphere_conv_pallas.py:113"  # _kernel, at stride 1
+# wrapper name -> (TPU kernel id, source in the repo, file:line of the TPU kernel)
+KERNELS = {
+    "sphere_conv_s1": ("B1", "emlight_tpu_torch/csrc/sphere_conv_s1.cu",
+                       "emlight_tpu/nn/sphere_conv_pallas.py:113"),  # _kernel, stride 1
+    "sphere_conv_s2": ("B2", "emlight_tpu_torch/csrc/sphere_conv_s2.cu",
+                       "emlight_tpu/nn/sphere_conv_pallas.py:113"),  # _kernel, stride 2
+    "sphere_conv_dx_s1": ("B3", "emlight_tpu_torch/csrc/sphere_conv_dx.cu",
+                          "emlight_tpu/nn/sphere_conv_vjp.py:199"),  # _dx_kernel_s1_umajor
+    "sphere_conv_dx_s2": ("B5", "emlight_tpu_torch/csrc/sphere_conv_dx.cu",
+                          "emlight_tpu/nn/sphere_conv_vjp.py:293"),  # _dx_kernel_s2
+    "sphere_conv_dk": ("B4", "emlight_tpu_torch/csrc/sphere_conv_dk.cu",
+                       "emlight_tpu/nn/sphere_conv_vjp.py:455"),  # _dk_kernel
+}
 
 
 def _check(ok, message: str) -> None:
@@ -102,45 +122,101 @@ def scalar_weight_tables(h: int, w: int, stride: int = 1):
 
 
 @functools.lru_cache(maxsize=None)
-def _device_tables(h: int, w: int, device: str):
-    """(rows, shifts, w0, jdev), each (h, 9, 4), copied to `device` once."""
-    rows, shifts, _ = structured_tables(h, w, 1)
-    w0, jdev = scalar_weight_tables(h, w, 1)
+def _device_tables(h: int, w: int, stride: int, device: str):
+    """(rows, shifts, w0, jdev), each (h // stride, 9, 4), copied to `device`
+    once per (shape, stride)."""
+    rows, shifts, _ = structured_tables(h, w, stride)
+    w0, jdev = scalar_weight_tables(h, w, stride)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in (rows, shifts, w0, jdev))
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
+def _device_inverse_tables(h: int, w: int, stride: int, device: str):
+    """(out_rows, taps, shifts, w0, jdev) of inverse_tables, each (h, fanin),
+    on `device`, and fanin."""
+    from .sphere_conv_vjp import inverse_tables
+
+    *tabs, fanin = inverse_tables(h, w, stride)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in tabs), fanin
+
+
+_DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(lib_name: str, dtype: torch.dtype, n_ptr: int, n_int: int):
+    """The C function ``<lib_name>_<f32|bf16>`` of csrc/<lib_name>.cu, taking
+    n_ptr pointers, n_int ints and the stream."""
     from ..kernels import load
 
-    lib = load("sphere_conv_s1")
-    fn = getattr(lib, {torch.float32: "sphere_conv_s1_f32",
-                       torch.bfloat16: "sphere_conv_s1_bf16"}[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = getattr(load(lib_name), f"{lib_name}_{_DTYPE_SUFFIX[dtype]}")
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _validate(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None) -> None:
-    if x.dim() != 4:
-        raise ValueError(f"x must be (B, H, W, Cin), got {tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+def _check_pair(a: torch.Tensor, b: torch.Tensor, names: str) -> None:
+    """Both 4-d, contiguous, of one kernel dtype, on one device."""
+    for t in (a, b):
+        if t.dim() != 4:
+            raise ValueError(f"{names} must be 4-d, got {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.dtype not in _DTYPE_SUFFIX:
+        raise TypeError(f"{names} must be float32 or bfloat16, got {a.dtype}")
+    if b.dtype != a.dtype:
+        raise TypeError(f"{names} differ in dtype: {a.dtype} and {b.dtype}")
+    if b.device != a.device:
+        raise ValueError(f"{names} lie on {a.device} and {b.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{names} must be contiguous")
+
+
+def _validate(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None,
+              stride: int = 1) -> None:
+    _check_pair(x, kernel, "x and kernel")
     cin = x.shape[3]
-    if kernel.dim() != 4 or tuple(kernel.shape[:3]) != (3, 3, cin):
+    if tuple(kernel.shape[:3]) != (3, 3, cin):
         raise ValueError(f"kernel must be (3, 3, {cin}, Cout), got {tuple(kernel.shape)}")
-    if kernel.dtype != x.dtype:
-        raise TypeError(f"kernel dtype {kernel.dtype} differs from x dtype {x.dtype}")
-    if kernel.device != x.device:
-        raise ValueError(f"kernel on {kernel.device}, x on {x.device}")
-    if not (x.is_contiguous() and kernel.is_contiguous()):
-        raise ValueError("x and kernel must be contiguous")
+    if x.shape[1] % stride or x.shape[2] % stride:
+        raise ValueError(f"x {tuple(x.shape)}: H and W must divide by the stride {stride}")
     if bias is not None:
         if tuple(bias.shape) != (kernel.shape[3],) or bias.dtype != torch.float32:
             raise ValueError(f"bias must be float32 ({kernel.shape[3]},)")
         if bias.device != x.device or not bias.is_contiguous():
             raise ValueError("bias must be contiguous on x's device")
+
+
+def _on_cuda(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises for other devices."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, got {x.device}")
+    return True
+
+
+def _raise_on(rc: int, what: str, detail: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed with CUDA error {rc} at {detail}")
+
+
+def _forward(x, kernel, bias, stride: int, lib_name: str) -> torch.Tensor:
+    _validate(x, kernel, bias, stride)
+    b, h, w, cin = x.shape
+    cout = kernel.shape[3]
+    if bias is None:
+        bias = torch.zeros(cout, dtype=torch.float32, device=x.device)
+    rows, shifts, w0, jdev = _device_tables(h, w, stride, str(x.device))
+    out = torch.empty(b, h // stride, w // stride, cout, dtype=torch.float32, device=x.device)
+    # the launch goes to the current device: make it x's
+    with torch.cuda.device(x.device):
+        rc = _entry(lib_name, x.dtype, 8, 5)(
+            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), rows.data_ptr(),
+            shifts.data_ptr(), w0.data_ptr(), jdev.data_ptr(), out.data_ptr(),
+            b, h, w, cin, cout, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _raise_on(rc, lib_name, f"x {tuple(x.shape)} {x.dtype}, cout {cout}")
+    return out
 
 
 def sphere_conv_s1(x: torch.Tensor, kernel: torch.Tensor,
@@ -151,29 +227,149 @@ def sphere_conv_s1(x: torch.Tensor, kernel: torch.Tensor,
     CPU tensor: the plain version. CUDA tensor: one launch of the CUDA kernel
     on the current stream, counted in ``sphere_conv_s1.launches``.
     """
-    if x.device.type == "cpu":
+    if not _on_cuda(x, "sphere_conv_s1"):
         return sphere_conv_plain(x, kernel, bias, 1)
-    if x.device.type != "cuda":
-        raise ValueError(f"sphere_conv_s1 runs on cpu or cuda, got {x.device}")
-    _validate(x, kernel, bias)
-    b, h, w, cin = x.shape
-    cout = kernel.shape[3]
-    if bias is None:
-        bias = torch.zeros(cout, dtype=torch.float32, device=x.device)
-    rows, shifts, w0, jdev = _device_tables(h, w, str(x.device))
-    out = torch.empty(b, h, w, cout, dtype=torch.float32, device=x.device)
-    # the launch goes to the current device: make it x's
-    with torch.cuda.device(x.device):
-        rc = _entry(x.dtype)(
-            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), rows.data_ptr(),
-            shifts.data_ptr(), w0.data_ptr(), jdev.data_ptr(), out.data_ptr(),
-            b, h, w, cin, cout, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"sphere_conv_s1 launch failed with CUDA error {rc} "
-                           f"at x {tuple(x.shape)} {x.dtype}, cout {cout}")
+    out = _forward(x, kernel, bias, 1, "sphere_conv_s1")
     sphere_conv_s1.launches += 1
     return out
 
 
-sphere_conv_s1.launches = 0
+def sphere_conv_s2(x: torch.Tensor, kernel: torch.Tensor,
+                   bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Stride-2 sphere conv: x (B, H, W, Cin) f32/bf16 with H, W even, kernel
+    (3, 3, Cin, Cout) in x's dtype, bias (Cout,) f32 -> (B, H/2, W/2, Cout) f32.
+
+    CPU tensor: the plain version. CUDA tensor: one launch of the CUDA kernel,
+    counted in ``sphere_conv_s2.launches``.
+    """
+    if not _on_cuda(x, "sphere_conv_s2"):
+        return sphere_conv_plain(x, kernel, bias, 2)
+    out = _forward(x, kernel, bias, 2, "sphere_conv_s2")
+    sphere_conv_s2.launches += 1
+    return out
+
+
+def _dx(g: torch.Tensor, kernel: torch.Tensor, x_shape, stride: int) -> torch.Tensor:
+    _check_pair(g, kernel, "g and kernel")
+    b, h, w, cin = (int(v) for v in x_shape)
+    cout = g.shape[3]
+    if h % stride or w % stride or tuple(g.shape) != (b, h // stride, w // stride, cout):
+        raise ValueError(f"g {tuple(g.shape)} is not the stride-{stride} output of "
+                         f"x {tuple(x_shape)}")
+    if tuple(kernel.shape) != (3, 3, cin, cout):
+        raise ValueError(f"kernel must be (3, 3, {cin}, {cout}), got {tuple(kernel.shape)}")
+    (orow, tap, shift, w0, jdev), fanin = _device_inverse_tables(h, w, stride, str(g.device))
+    u = torch.empty(b, 9, h // stride, w // stride, cin, dtype=torch.float32, device=g.device)
+    dx = torch.empty(b, h, w, cin, dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = _entry("sphere_conv_dx", g.dtype, 9, 7)(
+            g.data_ptr(), kernel.data_ptr(), u.data_ptr(), orow.data_ptr(), tap.data_ptr(),
+            shift.data_ptr(), w0.data_ptr(), jdev.data_ptr(), dx.data_ptr(),
+            b, h, w, cin, cout, stride, fanin,
+            torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    _raise_on(rc, f"sphere_conv_dx_s{stride}", f"g {tuple(g.shape)} {g.dtype}, cin {cin}")
+    return dx
+
+
+def sphere_conv_dx_s1(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.Tensor:
+    """dx (B, H, W, Cin) f32 of a stride-1 sphere conv from its cotangent g
+    (B, H, W, Cout) and kernel (3, 3, Cin, Cout), both in one dtype.
+
+    CPU tensor: ``dx_plain``. CUDA tensor: the U product and the gather over
+    ``inverse_tables`` (two launches on the current stream), counted once in
+    ``sphere_conv_dx_s1.launches``.
+    """
+    if not _on_cuda(g, "sphere_conv_dx_s1"):
+        from .sphere_conv_vjp import dx_plain
+
+        return dx_plain(g, kernel, x_shape, 1)
+    dx = _dx(g, kernel, x_shape, 1)
+    sphere_conv_dx_s1.launches += 1
+    return dx
+
+
+def sphere_conv_dx_s2(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.Tensor:
+    """dx (B, H, W, Cin) f32 of a stride-2 sphere conv from its cotangent g
+    (B, H/2, W/2, Cout) and kernel (3, 3, Cin, Cout), both in one dtype.
+
+    CPU tensor: ``dx_plain``. CUDA tensor: as ``sphere_conv_dx_s1``, with
+    even and odd input columns written in place; counted in
+    ``sphere_conv_dx_s2.launches``.
+    """
+    if not _on_cuda(g, "sphere_conv_dx_s2"):
+        from .sphere_conv_vjp import dx_plain
+
+        return dx_plain(g, kernel, x_shape, 2)
+    dx = _dx(g, kernel, x_shape, 2)
+    sphere_conv_dx_s2.launches += 1
+    return dx
+
+
+def sphere_conv_dx(g: torch.Tensor, kernel: torch.Tensor, x_shape, stride: int) -> torch.Tensor:
+    """dx by stride: ``sphere_conv_dx_s1`` (B3) or ``sphere_conv_dx_s2`` (B5)."""
+    if stride == 1:
+        return sphere_conv_dx_s1(g, kernel, x_shape)
+    if stride == 2:
+        return sphere_conv_dx_s2(g, kernel, x_shape)
+    raise ValueError(f"sphere conv stride must be 1 or 2, got {stride}")
+
+
+_DK_SLAB = 16          # pixels per staged slab (the kernel's BK)
+_DK_TARGET_BLOCKS = 528  # 4 blocks per SM of an H100's 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dk_chunks(n_pix: int, cin: int, cout: int) -> tuple[int, int]:
+    """(pixels per chunk, chunk count) of the dK kernel's pixel split: enough
+    chunks that the (cin tile, cout tile, tap, chunk) grid has about 4 blocks
+    per SM, each chunk a whole number of 16-pixel slabs."""
+    tiles = _cdiv(cin, 64) * _cdiv(cout, 64) * 9
+    want = max(1, min(_cdiv(_DK_TARGET_BLOCKS, tiles), _cdiv(n_pix, _DK_SLAB)))
+    chunk = _cdiv(_cdiv(n_pix, want), _DK_SLAB) * _DK_SLAB
+    return chunk, _cdiv(n_pix, chunk)
+
+
+def sphere_conv_dk(x: torch.Tensor, g: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """dK (3, 3, Cin, Cout) f32 of a stride-1 or stride-2 sphere conv from its
+    input x (B, H, W, Cin) and cotangent g (B, H/stride, W/stride, Cout), both
+    in one dtype.
+
+    CPU tensor: ``dk_plain``. CUDA tensor: per-chunk partials and their sum in
+    a fixed order (two launches on the current stream), counted once in
+    ``sphere_conv_dk.launches``.
+    """
+    if not _on_cuda(x, "sphere_conv_dk"):
+        from .sphere_conv_vjp import dk_plain
+
+        return dk_plain(x, g, stride)
+    if stride not in (1, 2):
+        raise ValueError(f"sphere conv stride must be 1 or 2, got {stride}")
+    _check_pair(x, g, "x and g")
+    b, h, w, cin = x.shape
+    cout = g.shape[3]
+    if h % stride or w % stride or tuple(g.shape[:3]) != (b, h // stride, w // stride):
+        raise ValueError(f"g {tuple(g.shape)} is not the stride-{stride} output of "
+                         f"x {tuple(x.shape)}")
+    rows, shifts, w0, jdev = _device_tables(h, w, stride, str(x.device))
+    chunk, n_chunks = dk_chunks(b * (h // stride) * (w // stride), cin, cout)
+    partial = torch.empty(n_chunks, 9, cin, cout, dtype=torch.float32, device=x.device)
+    dk = torch.empty(3, 3, cin, cout, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _entry("sphere_conv_dk", x.dtype, 8, 8)(
+            x.data_ptr(), g.data_ptr(), rows.data_ptr(), shifts.data_ptr(), w0.data_ptr(),
+            jdev.data_ptr(), partial.data_ptr(), dk.data_ptr(),
+            b, h, w, cin, cout, stride, chunk, n_chunks,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _raise_on(rc, "sphere_conv_dk", f"x {tuple(x.shape)} {x.dtype}, cout {cout}, stride {stride}")
+    sphere_conv_dk.launches += 1
+    return dk
+
+
+for _fn in (sphere_conv_s1, sphere_conv_s2, sphere_conv_dx_s1, sphere_conv_dx_s2, sphere_conv_dk):
+    _fn.launches = 0
+del _fn

@@ -21,7 +21,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["densenet_state_from_jax", "generator_state_from_jax"]
+__all__ = ["densenet_state_from_jax", "generator_state_from_jax",
+           "discriminator_state_from_jax"]
 
 
 def _walk(tree: Mapping, prefix: tuple = ()):
@@ -90,4 +91,24 @@ def generator_state_from_jax(params: Mapping, stats: Mapping) -> dict[str, torch
     for coll in ("batch_stats", "spectral"):
         for path, a in _walk(stats.get(coll, {})):
             sd[".".join(path)] = _f32(a)
+    return _tensors(sd)
+
+
+def discriminator_state_from_jax(params: Mapping, stats: Mapping) -> dict[str, torch.Tensor]:
+    """MultiscaleDiscriminator params + {"spectral"} -> port state_dict.
+
+    Every kernel is a sphere conv and stays HWIO; the spectral-norm u and v
+    of the SN convs are copied verbatim.
+    """
+    sd = {}
+    for path, a in _walk(params):
+        mod, leaf = ".".join(path[:-1]), path[-1]
+        if leaf not in ("kernel", "bias") or (leaf == "kernel" and a.ndim != 4):
+            raise KeyError(f"unexpected discriminator parameter {'/'.join(path)}")
+        sd[f"{mod}.{leaf}"] = _f32(a)
+    unknown = set(stats) - {"spectral"}
+    if unknown:
+        raise KeyError(f"unexpected discriminator collections {sorted(unknown)}")
+    for path, a in _walk(stats.get("spectral", {})):
+        sd[".".join(path)] = _f32(a)
     return _tensors(sd)

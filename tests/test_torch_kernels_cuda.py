@@ -13,6 +13,7 @@ import torch
 
 from emlight_tpu_torch.nn import sphere_conv as tsc
 from emlight_tpu_torch.nn import sphere_conv_kernel as tker
+from emlight_tpu_torch.nn import sphere_conv_vjp as tvjp
 
 pytestmark = pytest.mark.cuda
 
@@ -67,10 +68,10 @@ def test_kernel_without_bias(card):
                                rtol=1e-4, atol=1e-4)
 
 
-def test_stride2_on_card_raises(card):
+def test_stride3_on_card_raises(card):
     x, k, bias = _inputs((1, 16, 32, 8), 8, card)
-    with pytest.raises(NotImplementedError, match="B2"):
-        tsc.sphere_conv(x, k, bias, 2)
+    with pytest.raises(ValueError, match="stride"):
+        tsc.sphere_conv(x, k, bias, 3)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
@@ -85,3 +86,123 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
         tker.sphere_conv_s1(x, k[:, :, :4], bias)
     with pytest.raises(ValueError):
         tker.sphere_conv_s1(x, k, bias.cpu())
+
+
+def _close(out, ref, dtype, rtol=1e-4, atol=1e-4):
+    """f32: the stated rtol/atol; bf16: within 2e-2 of max|ref|."""
+    if dtype == "float32":
+        torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+    else:
+        assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+# the discriminator's stride-2 shapes (cin 6 front at 128x256 and 64x128,
+# 8x16 and 16x32 maps) and ragged widths
+S2_SHAPES = [((2, 128, 256, 6), 64), ((2, 64, 128, 6), 64), ((2, 32, 64, 128), 256),
+             ((2, 16, 32, 128), 256), ((3, 8, 16, 20), 70)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout", S2_SHAPES)
+def test_stride2_kernel_matches_plain(card, dtype, shape, cout):
+    x, k, bias = _inputs(shape, cout, card)
+    dt = getattr(torch, dtype)
+    x, k = x.to(dt), k.to(dt)
+    before = tker.sphere_conv_s2.launches
+    out = tsc.sphere_conv(x, k, bias, 2)
+    torch.cuda.synchronize()
+    assert tker.sphere_conv_s2.launches == before + 1
+    assert out.shape == (shape[0], shape[1] // 2, shape[2] // 2, cout)
+    _close(out, tsc.sphere_conv_plain(x, k, bias, 2), dtype)
+
+
+# (x shape, cout, stride): cin 3/6 and cout 3, 8x16 maps, and a wide 4x8 map
+GRAD_SHAPES = [((2, 128, 256, 3), 384, 1), ((2, 128, 256, 64), 3, 1), ((2, 4, 8, 1024), 1024, 1),
+               ((2, 16, 32, 512), 3, 1), ((2, 8, 16, 256), 512, 1), ((2, 64, 128, 128), 256, 1),
+               ((2, 128, 256, 6), 64, 2), ((2, 64, 128, 64), 128, 2), ((2, 16, 32, 128), 256, 2),
+               ((3, 8, 16, 20), 70, 2), ((3, 8, 16, 20), 70, 1)]
+
+
+def _grad_inputs(shape, cout, stride, device, seed=1, mean_loss=False):
+    """x, kernel and a standard-normal cotangent g; with mean_loss, g is
+    scaled by 1/sqrt(output pixels), the size of a loss averaged over them,
+    so dK stays O(1) however many pixels it sums over."""
+    x, k, _ = _inputs(shape, cout, device, seed)
+    rng = np.random.default_rng(seed + 1)
+    g_shape = (shape[0], shape[1] // stride, shape[2] // stride, cout)
+    g = rng.standard_normal(g_shape).astype(np.float32)
+    if mean_loss:
+        g /= np.sqrt(np.prod(g_shape[:3]))
+    return x, k, torch.from_numpy(g).to(device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout,stride", GRAD_SHAPES)
+def test_dx_kernel_matches_plain(card, dtype, shape, cout, stride):
+    x, k, g = _grad_inputs(shape, cout, stride, card)
+    dt = getattr(torch, dtype)
+    g, k = g.to(dt), k.to(dt)
+    counter = tker.sphere_conv_dx_s1 if stride == 1 else tker.sphere_conv_dx_s2
+    before = counter.launches
+    dx = tker.sphere_conv_dx(g, k, tuple(x.shape), stride)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert dx.dtype == torch.float32 and dx.shape == x.shape
+    _close(dx, tvjp.dx_plain(g, k, tuple(x.shape), stride), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout,stride", GRAD_SHAPES)
+def test_dk_kernel_matches_plain(card, dtype, shape, cout, stride):
+    x, _, g = _grad_inputs(shape, cout, stride, card, mean_loss=True)
+    dt = getattr(torch, dtype)
+    x, g = x.to(dt), g.to(dt)
+    before = tker.sphere_conv_dk.launches
+    dk = tker.sphere_conv_dk(x, g, stride)
+    torch.cuda.synchronize()
+    assert tker.sphere_conv_dk.launches == before + 1
+    assert dk.dtype == torch.float32 and dk.shape == (3, 3, shape[-1], cout)
+    # the sums over pixels run in another order (chunked partials against
+    # one matmul): rtol 1e-3, as tests/test_sphere_conv_vjp.py:132 holds _dk_pallas
+    _close(dk, tvjp.dk_plain(x, g, stride), dtype, rtol=1e-3, atol=1e-4)
+
+
+def test_dk_kernel_is_deterministic(card):
+    x, _, g = _grad_inputs((2, 64, 128, 64), 128, 1, card)
+    a = tker.sphere_conv_dk(x, g, 1)
+    b = tker.sphere_conv_dk(x, g, 1)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_function_backward_uses_the_kernels(card, stride):
+    """SphereConvFunction on the card: dx, dK and db against autograd of the
+    plain forward, each kernel launched once."""
+    x, k, bias = _inputs((2, 16, 32, 8), 12, card)
+    x, k, bias = (t.requires_grad_() for t in (x, k, bias))
+    tgt = torch.rand(2, 16 // stride, 32 // stride, 12, device=card)
+    counters = (tker.sphere_conv_s1 if stride == 1 else tker.sphere_conv_s2,
+                tker.sphere_conv_dx_s1 if stride == 1 else tker.sphere_conv_dx_s2,
+                tker.sphere_conv_dk)
+    before = [c.launches for c in counters]
+    got = torch.autograd.grad(((tsc.sphere_conv(x, k, bias, stride) - tgt) ** 2).sum(),
+                              (x, k, bias))
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    ref = torch.autograd.grad(((tsc.sphere_conv_plain(x, k, bias, stride) - tgt) ** 2).sum(),
+                              (x, k, bias))
+    for a, b_ in zip(got, ref):
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-4)
+
+
+def test_grad_wrappers_reject_what_the_kernels_do_not_take(card):
+    x, k, g = _grad_inputs((1, 8, 16, 8), 8, 1, card)
+    with pytest.raises(TypeError):
+        tker.sphere_conv_dx(g, k.bfloat16(), tuple(x.shape), 1)
+    with pytest.raises(ValueError):
+        tker.sphere_conv_dx(g, k, (1, 8, 16, 8), 2)
+    with pytest.raises(ValueError):
+        tker.sphere_conv_dk(x, g.transpose(1, 2), 1)
+    with pytest.raises(ValueError):
+        tker.sphere_conv_dk(x, g, 3)
+    with pytest.raises(ValueError):
+        tker.sphere_conv_s2(x[:, :7], k[:, :, :8], None)

@@ -116,7 +116,10 @@ def test_generator_requires_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_generator_is_eval_only():
-    g = TP.make_models(port_projector_cfg(jax_cfg(False)), device="cpu").train()
+    """A use_vae generator runs in eval only: its training (the
+    reparameterized latent) is not ported. Train mode without use_vae is
+    tests/test_torch_projector_train.py's."""
+    g = TP.make_models(port_projector_cfg(jax_cfg(True)), device="cpu").train()
     guide, crop = _guide_and_crop(1)
     with pytest.raises(NotImplementedError, match="eval"):
         g(torch.from_numpy(guide), torch.from_numpy(crop))
