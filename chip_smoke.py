@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (emlight_tpu_torch) on one GPU.
 
-Drives the port's two main paths at full width (RegressionConfig() and
+Drives the port's three main paths at full width (RegressionConfig() and
 ProjectorConfig() defaults, weights drawn from seeded torch.Generators):
 serving — crop -> DenseNet-BC regressor -> Gaussian-splat guide -> SPADE
-generator -> 128x256 HDR env map — and SPADE GAN training — alternating
-generator and discriminator steps at batch 8 — and holds every hand-written
-kernel against its plain PyTorch version. Phases, each of which raises on
-failure:
+generator -> 128x256 HDR env map —, SPADE GAN training — alternating
+generator and discriminator steps at batch 8 — and regression training —
+Adam steps of the DenseNet-BC regressor under the Sinkhorn + L2 loss at
+batch 16 — and holds every hand-written kernel against its plain PyTorch
+version. Phases, each of which raises on failure:
 
 1. device   card name and nvidia-smi's name and power limit
 2. build    nvcc builds every csrc/*.cu (all started together)
@@ -25,15 +26,26 @@ failure:
             (create_state, ProjectorConfig(), VGG off), every kernel's launch
             count read around each step; losses finite, parameters, D's u and
             G's BatchNorm statistics changed
-7. tcheck   every training kernel (B2 forward, B3/B5 dx, B4 dK) vs its plain
-            version at every distinct training shape, f32 and bf16, at batch
-            2 and at the main path's batch (the timed inputs)
-8. ttiming  per-shape kernel vs plain version vs bound; the G step and the D
-            step at batch 8; one profiled G step: idle share, top device work
+7. tcheck   every training kernel (B2 forward, B3/B6/B5 dx, B4 dK) vs its
+            plain version at every distinct training shape, f32 and bf16, at
+            batch 2 and at the main path's batch (the timed inputs)
+8. ttiming  per-shape kernel vs plain version vs bound, and B3 against B6 at
+            every stride-1 dx shape; the G step and the D step at batch 8;
+            one profiled G step: idle share, top device work
 9. tcpu     one G step and one D step at batch 2 on a reduced config, card
             against the CPU plain path: losses, and every gradient leaf
             within a bar measured from the CPU's own spread under a jitter
-10. kernels one JSON line with every ported kernel
+10. rtrain  3 regression train_steps of batch 16 (RegressionConfig()), the
+            dense-conv kernels' launches read around each (48 each); metrics
+            finite, parameters and running variances changed; then 10 steps
+            on one batch, the loss falls
+11. rcheck  B7, B7' (dx, da, db) and B8 vs their plain versions at the
+            path's shapes at batch 2 and 16 and two ragged ones, f32 and bf16
+12. rtiming per shape: kernel, plain version, cuDNN call, bound; the step at
+            batch 16; one profiled step: idle share, top device work
+13. rcpu    one train_step at batch 4 on a reduced config, card against the
+            CPU plain path: losses and every gradient leaf (measured bar)
+14. kernels one JSON line with every ported kernel
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 run from a directory without the package beside it, it exits non-zero and
@@ -63,12 +75,24 @@ REQUESTS, BATCH = 4, 8  # the main path: 4 requests of batch 8
 TRAIN_STEPS = 3         # the training path: 3 alternating G + D steps of batch BATCH
 # kernel launches per step at num_d 2, n_layers_d 4 (D runs on 2B): the G
 # step skips dx of the 7 mlp_shared convs (constant guide) and dK of the
-# frozen D; the D step runs G without grad and needs no dx into D's input
-EXPECTED_G_STEP = {"sphere_conv_s1": 48, "sphere_conv_s2": 6, "sphere_conv_dx_s1": 41,
-                   "sphere_conv_dk": 44, "sphere_conv_dx_s2": 6}
-EXPECTED_D_STEP = {"sphere_conv_s1": 48, "sphere_conv_s2": 6, "sphere_conv_dx_s1": 4,
-                   "sphere_conv_dk": 10, "sphere_conv_dx_s2": 4}
-# card vs CPU gradients (phase 9): each leaf within the larger of GRAD_REL and
+# frozen D; the D step runs G without grad and needs no dx into D's input.
+# Stride-1 dx takes B6 (sphere_conv_dx_s1_triple) below 2048 pixels (the 4x8,
+# 8x16 and 16x32 maps) and B3 (sphere_conv_dx_s1) above: 22 + 19 of the G
+# step's 41, and all 4 of the D step's (D's stride-1 convs read 16x32 and 8x16)
+EXPECTED_G_STEP = {"sphere_conv_s1": 48, "sphere_conv_s2": 6, "sphere_conv_dx_s1": 19,
+                   "sphere_conv_dx_s1_triple": 22, "sphere_conv_dk": 44,
+                   "sphere_conv_dx_s2": 6}
+EXPECTED_D_STEP = {"sphere_conv_s1": 48, "sphere_conv_s2": 6, "sphere_conv_dx_s1": 0,
+                   "sphere_conv_dx_s1_triple": 4, "sphere_conv_dk": 10,
+                   "sphere_conv_dx_s2": 4}
+# the regression training path: full width, the reference's batch 16
+# (RegressionNetwork/train.py:25); each of the 48 dense layers launches the
+# fused conv forward (B7), its dx (B7') and its dK (B8) once per step
+REG_BATCH, REG_STEPS, REG_FALL_STEPS = 16, 3, 10
+EXPECTED_REG_STEP = {"dense_conv_fwd": 48, "dense_conv_dx": 48, "dense_conv_dk": 48}
+REG_METRICS = {"loss", "dist_emloss", "dist_l2loss", "intensity_loss", "rgb_loss",
+               "ambient_loss"}
+# card vs CPU gradients (phases 9 and 13): each leaf within the larger of GRAD_REL and
 # GRAD_SPREAD times the CPU's own spread, the change a JITTER-relative
 # perturbation of the batch makes to the CPU's gradients (see grad_ratios)
 GRAD_REL, GRAD_FLOOR, GRAD_SPREAD, JITTER = 1e-3, 1e-3, 4.0, 1e-6
@@ -153,6 +177,25 @@ def kernel_bound_ms(kind, b, h, w, cin, cout, stride, dtype, fanin=64):
         "dx": g_b + k_b + h * fanin * 20 + b * h * w * cin * 4,
         "dk": x_b + g_b + fwd_tables + 9 * cin * cout * 4,
     }[kind]
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def dense_bound_ms(kind, b, h, w, cin, cout, dtype="float32"):
+    """Least time for one launch of a dense-layer conv kernel at x (b, h, w,
+    cin) -> cout: the larger of its operations (2*B*H*W*9*Cin*Cout for the
+    conv, plus the affine or the post-scale and dA products on B*H*W*Cin)
+    over the card's peak for the type and its bytes (inputs once, outputs
+    once, f32 outputs) over the memory rate. Returns (ms, "operations" or
+    "bytes")."""
+    size = 4 if dtype == "float32" else 2
+    px = b * h * w
+    flops = 2 * px * 9 * cin * cout + {"fwd": 2, "dx": 3, "dk": 2}[kind] * px * cin
+    x_b, g_b, k_b, vec = px * cin * size, px * cout * size, 9 * cin * cout * size, cin * 4
+    nbytes = {"fwd": x_b + k_b + 2 * vec + px * cout * 4,
+              "dx": g_b + x_b + k_b + vec + px * cin * 4 + 2 * vec,
+              "dk": x_b + g_b + 2 * vec + 9 * cin * cout * 4}[kind]
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -268,14 +311,17 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
         f"G's BatchNorm statistics in every D step")
 
     # the launches the hooks saw, by kernel and shape, per G and per D step
-    def kernel_of(kind, stride):
+    def kernel_of(kind, shape):
+        stride = shape[-1]
+        if kind == "dx" and stride == 1 and shape[1] * shape[2] < SK.UMAJOR_MIN_PIXELS:
+            return "sphere_conv_dx_s1_triple"
         return {"fwd": f"sphere_conv_s{stride}", "dx": f"sphere_conv_dx_s{stride}",
                 "dk": "sphere_conv_dk"}[kind]
 
     per_step: dict = {}
     for step_name, seen in calls.items():
         for kind, shape in seen:
-            key = (kernel_of(kind, shape[-1]), kind, shape)
+            key = (kernel_of(kind, shape), kind, shape)
             per_step.setdefault(key, {"G": 0, "D": 0})[step_name] += 1
     for step_name, expected in (("G", EXPECTED_G_STEP), ("D", EXPECTED_D_STEP)):
         for n in names:
@@ -350,10 +396,26 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
                "ms": cuda_ms(torch, kern, warmup=1, iters=5),
                "plain_ms": cuda_ms(torch, plain, warmup=1, iters=5),
                "bound_ms": bound, "bound_by": bound_by}
+        if kind == "dx" and stride == 1:
+            # B3 and B6 on the same inputs: where the routing gate should lie
+            x_, k_, _, g_ = inputs
+            ref = dx_plain(g_, k_, tuple(x_.shape), 1)
+            for alt in ("sphere_conv_dx_s1", "sphere_conv_dx_s1_triple"):
+                if alt == name:
+                    row[f"{alt}_ms"] = row["ms"]
+                elif alt == "sphere_conv_dx_s1" or w <= 128:
+                    fn = wrappers[alt]
+                    torch.testing.assert_close(fn(g_, k_, tuple(x_.shape)), ref, rtol=1e-4,
+                                               atol=1e-4, msg=lambda m: f"{alt} {shape}: {m}")
+                    row[f"{alt}_ms"] = cuda_ms(torch, lambda: fn(g_, k_, tuple(x_.shape)),
+                                               warmup=1, iters=5)
+            del ref
         rows.append(row)
         log(f"[ttiming] {name} {kind} B{b} {h}x{w} {cin}->{cout} s{stride} "
             f"x{row['per_g_step']}/G x{row['per_d_step']}/D: kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+            f"plain {row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by})"
+            + "".join(f", {k[:-3]} {v:.4f} ms" for k, v in row.items()
+                      if k.startswith("sphere_conv_dx_s1")))
         del inputs, kern, plain
     tables["train_shapes"] = rows
     log("[tcheck] at batches 2 and the main path's: " + "; ".join(
@@ -388,6 +450,20 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
     for (n, h, w), v in sorted(by_map.items()):
         log(f"[ttiming] by map, per G+D step: {n} {h}x{w} x{v['launches']}: kernel "
             f"{v['ms']:.3f} ms, plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.4f}")
+    cross: dict = {}
+    for r in rows:
+        if "sphere_conv_dx_s1_ms" in r:
+            n = r["per_g_step"] + r["per_d_step"]
+            agg = cross.setdefault((r["shape"][1], r["shape"][2]),
+                                   {"launches": 0, "B3": 0.0, "B6": 0.0, "routed": r["kernel"]})
+            agg["launches"] += n
+            agg["B3"] += r["sphere_conv_dx_s1_ms"] * n
+            b6 = r.get("sphere_conv_dx_s1_triple_ms")
+            agg["B6"] = None if b6 is None or agg["B6"] is None else agg["B6"] + b6 * n
+    for (h, w), v in sorted(cross.items()):
+        b6 = "not run (W > 128)" if v["B6"] is None else f"{v['B6']:.3f} ms"
+        log(f"[ttiming] stride-1 dx by map, per G+D step: {h}x{w} x{v['launches']}: B3 "
+            f"{v['B3']:.3f} ms, B6 {b6}; routed to {v['routed']}")
     tables["train_steps_ms"] = step_ms
     tables["train_per_kernel"] = per_kernel
 
@@ -488,6 +564,255 @@ def run_card_vs_cpu(torch, np, dev, seed: int) -> None:
         f"{JITTER:g} relative jitter of crop and target; gradient leaves against their scale, "
         f"bar the larger of {GRAD_REL} and {GRAD_SPREAD:g}x the CPU's own spread under that "
         f"jitter: " + "; ".join(summary) + f"; took {time.perf_counter() - t0:.1f} s")
+
+
+def run_regression(torch, np, dev, seed: int, tables: dict, save) -> list:
+    """Phases 10-12: the regression training path at full width
+    (RegressionConfig(), batch 16), the dense-layer conv kernels against
+    their plain versions and the timings. Calls save() once the tables are
+    in `tables`. Returns the kernels-line entries of B7, B7' and B8."""
+    import torch.nn.functional as F
+
+    from emlight_tpu_torch.config import RegressionConfig
+    from emlight_tpu_torch.nn import dense_conv as DC
+    from emlight_tpu_torch.nn import dense_conv_kernel as DK
+    from emlight_tpu_torch.train import regression as TR
+    from emlight_tpu_torch.train.data import synthetic_regression_batch
+
+    names = list(EXPECTED_REG_STEP)
+    wrappers = {n: getattr(DK, n) for n in names}
+    cfg = RegressionConfig()
+
+    def make_batch(s):
+        b = synthetic_regression_batch(REG_BATCH, cfg.anchors.regression_anchors,
+                                       (cfg.crop_h, cfg.crop_w), seed=s)
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+    # 10. the training path: counts set to 0 just before each step, read after
+    state = TR.create_state(cfg, device=dev, seed=seed + 40)
+    model = state.model
+    seen: list = []  # (B, H, W, Cin, Cout) of every fused conv of one step
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: seen.append((out.shape[0], out.shape[2], out.shape[3],
+                                           out.shape[1], 12)))
+        for n, m in model.named_modules() if "denselayer" in n and n.endswith("conv1")]
+    batches = [make_batch(seed + 200 + i) for i in range(REG_STEPS)]
+    log(f"[rtrain] create_state: {sum(p.numel() for p in model.parameters())} parameters, "
+        f"batch {REG_BATCH}, crop {cfg.crop_h}x{cfg.crop_w}, blocks {cfg.block_config}, "
+        f"growth {cfg.growth_rate}, {cfg.anchors.regression_anchors} anchors, Sinkhorn blur "
+        f"{cfg.sinkhorn.blur} x{cfg.sinkhorn.n_iters}")
+    totals = dict.fromkeys(names, 0)
+    stat_names = [n for n, _ in model.named_buffers() if n.endswith("running_var")]
+    for step in range(REG_STEPS):
+        before = [p.detach().clone() for p in model.parameters()]
+        var_before = [b_.clone() for n, b_ in model.named_buffers() if n in stat_names]
+        for w_ in wrappers.values():
+            w_.launches = 0
+        metrics = TR.train_step(state, batches[step])
+        torch.cuda.synchronize()
+        got = {n: wrappers[n].launches for n in names}
+        if got != EXPECTED_REG_STEP:
+            raise AssertionError(f"regression step {step}: launches {got}, "
+                                 f"expected {EXPECTED_REG_STEP}")
+        for n in names:
+            totals[n] += got[n]
+        if set(metrics) != REG_METRICS:
+            raise AssertionError(f"regression step {step}: metric keys {sorted(metrics)}")
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        if bad:
+            raise AssertionError(f"regression step {step}: non-finite {bad}")
+        moved = sum(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
+        var_after = [b_ for n, b_ in model.named_buffers() if n in stat_names]
+        if moved == 0 or any(torch.equal(a, b_) for a, b_ in zip(var_before, var_after)):
+            raise AssertionError(f"regression step {step}: {moved} parameters moved, or a "
+                                 f"running variance did not change")
+        log(f"[rtrain] step {step}: " + ", ".join(f"{k} {v.item():.6g}"
+                                                  for k, v in sorted(metrics.items()))
+            + f"; parameters moved {moved}/{len(before)}")
+        if step == 0:
+            for h_ in hooks:
+                h_.remove()
+    del before
+    if len(seen) != EXPECTED_REG_STEP["dense_conv_fwd"]:
+        raise AssertionError(f"hooks saw {len(seen)} dense layers, expected 48")
+    log(f"[rtrain] {REG_STEPS} steps, kernel launches {totals} ({EXPECTED_REG_STEP} per "
+        f"step); every running variance changed in every step")
+    fall = [TR.train_step(state, batches[0])["loss"].item() for _ in range(REG_FALL_STEPS)]
+    if not all(np.isfinite(fall)) or fall[-1] >= fall[0]:
+        raise AssertionError(f"loss did not fall on one batch: {fall}")
+    log(f"[rtrain] {REG_FALL_STEPS} steps on one batch: loss " + " ".join(f"{v:.5g}" for v in fall))
+
+    # 11. every dense-layer kernel against its plain version: the path's
+    # shapes at batch 2 and 16, and ragged ones (h = 8; 10x12 with cin 5 -> 3)
+    per_step = {s_[1:]: seen.count(s_) for s_ in sorted(set(seen))}
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    worst = {n: {"float32": 0.0, "bf16_rel": 0.0} for n in names}
+
+    def dense_inputs(b, h, w, cin, cout):
+        x = torch.randn(b, h, w, cin, device=dev, generator=gen)
+        a = torch.rand(cin, device=dev, generator=gen) + 0.5
+        b_ = torch.randn(cin, device=dev, generator=gen) * 0.3
+        k = torch.randn(3, 3, cin, cout, device=dev, generator=gen) / (9 * cin) ** 0.5
+        # the cotangent of a loss averaged over the output: dK, da, db stay O(1)
+        g = torch.randn(b, h, w, cout, device=dev, generator=gen) / (b * h * w) ** 0.5
+        return x, a, b_, k, g
+
+    def pairs(x, a, b_, k, g):
+        return {
+            "dense_conv_fwd": (lambda: DK.dense_conv_fwd(x, a, b_, k),
+                               lambda: DC.conv3x3_nhwc_reference(x, a, b_, k)),
+            "dense_conv_dx": (lambda: DK.dense_conv_dx(g, x, a, k),
+                              lambda: DC.conv3x3_dx_plain(g, x, a, k)),
+            "dense_conv_dk": (lambda: DK.dense_conv_dk(x, g, a, b_),
+                              lambda: DC.conv3x3_dk_plain(x, g, a, b_)),
+        }
+
+    def check(shape, inputs):
+        x, a, b_, k, g = inputs
+        for dt in ("float32", "bfloat16"):
+            cast = getattr(torch, dt)
+            for name, (kern, plain) in pairs(x.to(cast), a, b_, k.to(cast), g.to(cast)).items():
+                outs, refs = kern(), plain()
+                torch.cuda.synchronize()
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                refs = refs if isinstance(refs, tuple) else (refs,)
+                for i, (out, ref) in enumerate(zip(outs, refs)):
+                    err = (out - ref).abs().max().item()
+                    if dt == "float32":
+                        # dK, da and db are long sums over pixels: rtol 1e-3
+                        rtol = 1e-3 if name == "dense_conv_dk" or i > 0 else 1e-4
+                        torch.testing.assert_close(out, ref, rtol=rtol, atol=1e-4,
+                                                   msg=lambda m: f"{name}[{i}] {shape}: {m}")
+                        worst[name]["float32"] = max(worst[name]["float32"], err)
+                    else:
+                        scale = ref.abs().max().item()
+                        if err > 2e-2 * scale:
+                            raise AssertionError(f"{name}[{i}] bf16 {shape}: {err} > 2e-2 * {scale}")
+                        worst[name]["bf16_rel"] = max(worst[name]["bf16_rel"], err / scale)
+
+    check_shapes = ([(2, *s_) for s_ in per_step] + [(REG_BATCH, *s_) for s_ in per_step]
+                    + [(2, 8, 16, 48, 12), (2, 10, 12, 5, 3)])
+    for shape in check_shapes:
+        check(shape, dense_inputs(*shape))
+    log(f"[rcheck] B7, B7' (dx, da, db), B8 against their plain versions at {check_shapes}: "
+        + "; ".join(f"{n} f32 max|err| {worst[n]['float32']:.3e}, bf16 "
+                    f"{worst[n]['bf16_rel']:.3e} of max|ref|" for n in names))
+
+    # 12. timing at the path's batch: kernel, plain version, bound and the
+    # cuDNN call on the same problem (channels_last; it gets y precomputed,
+    # so it leaves out the affine, and in dx the post-scale and dA/dB)
+    rows = []
+    for (h, w, cin, cout), n_step in per_step.items():
+        x, a, b_, k, g = dense_inputs(REG_BATCH, h, w, cin, cout)
+        y_cl = (x * a + b_).permute(0, 3, 1, 2)  # NHWC in memory: channels_last
+        g_cl = g.permute(0, 3, 1, 2)
+        w_cl = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        library = {
+            "dense_conv_fwd": lambda: F.conv2d(y_cl, w_cl, padding=1),
+            "dense_conv_dx": lambda: torch.nn.grad.conv2d_input(
+                (REG_BATCH, cin, h, w), w_cl, g_cl, padding=1),
+            "dense_conv_dk": lambda: torch.nn.grad.conv2d_weight(
+                y_cl, tuple(w_cl.shape), g_cl, padding=1),
+        }
+        for name, (kern, plain) in pairs(x, a, b_, k, g).items():
+            kind = name.rsplit("_", 1)[1]
+            bound, bound_by = dense_bound_ms(kind, REG_BATCH, h, w, cin, cout)
+            row = {"kernel": name, "shape": [REG_BATCH, h, w, cin, cout], "per_step": n_step,
+                   "ms": cuda_ms(torch, kern, warmup=1, iters=5),
+                   "plain_ms": cuda_ms(torch, plain, warmup=1, iters=5),
+                   "library_ms": cuda_ms(torch, library[name], warmup=1, iters=5),
+                   "bound_ms": bound, "bound_by": bound_by}
+            rows.append(row)
+            log(f"[rtiming] {name} B{REG_BATCH} {h}x{w} {cin}->{cout} x{n_step}/step: kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, cuDNN "
+                f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+        del x, a, b_, k, g, y_cl, g_cl, w_cl
+    per_kernel = {}
+    for n in names:
+        sel = [r for r in rows if r["kernel"] == n]
+        per = {key: sum(r[key] * r["per_step"] for r in sel)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        ops = sum(r["bound_ms"] * r["per_step"] for r in sel if r["bound_by"] == "operations")
+        per["bound_by"] = "operations" if ops >= per["bound_ms"] / 2 else "bytes"
+        per_kernel[n] = per
+    step_ms = cuda_ms(torch, lambda: TR.train_step(state, batches[0]), warmup=1, iters=5)
+    log(f"[rtiming] batch {REG_BATCH}: train_step {step_ms:.3f} ms; per step: " + "; ".join(
+        f"{n} kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f}, cuDNN {v['library_ms']:.3f}, "
+        f"bound {v['bound_ms']:.3f}" for n, v in per_kernel.items()))
+    tables["regression_shapes"] = rows
+    tables["regression_step_ms"] = step_ms
+    tables["regression_per_kernel"] = per_kernel
+    prof = device_profile(torch, lambda: TR.train_step(state, batches[0]), top=12)
+    if prof is None:
+        log("[rtiming] the profiler saw no device work: idle share not measured")
+    else:
+        wall_ms, busy_ms, ranked = prof
+        log(f"[rtiming] one train_step under the profiler: {wall_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}; top device work:")
+        for name, ms, n in ranked:
+            log(f"[rtiming]   {ms:9.3f} ms  {ms / busy_ms:.4f}  x{n:<4d} {name[:100]}")
+        tables["regression_profile"] = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                                        "top": [list(r) for r in ranked]}
+    save()
+
+    entries = []
+    for n in names:
+        kid, source, replaces = DK.KERNELS[n]
+        v = per_kernel[n]
+        entries.append({
+            "name": n, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": totals[n], "max_abs_err": worst[n]["float32"],
+            "max_err_f32": worst[n]["float32"], "max_err_bf16_rel": worst[n]["bf16_rel"],
+            "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
+            "bound_by": v["bound_by"], "library_ms": v["library_ms"],
+        })
+    return entries
+
+
+def run_regression_card_vs_cpu(torch, np, dev, seed: int) -> None:
+    """Phase 13: one train_step at batch 4 on a reduced config (crop 96x128,
+    blocks (4, 4, 4)) on the card and on the CPU plain path from one initial
+    state; the loss terms and every gradient leaf compared, the gradient bar
+    measured as in phase 9: the CPU runs the step again on a crop jittered by
+    JITTER relative, and each leaf of the card must lie within GRAD_SPREAD
+    times the largest change that jitter makes, and never needs to lie closer
+    than GRAD_REL."""
+    import dataclasses
+
+    from emlight_tpu_torch.config import RegressionConfig
+    from emlight_tpu_torch.train import regression as TR
+    from emlight_tpu_torch.train.data import synthetic_regression_batch
+
+    small = dataclasses.replace(RegressionConfig(), crop_h=96, crop_w=128, batch_size=4,
+                                block_config=(4, 4, 4))
+    sb = synthetic_regression_batch(4, 96, (96, 128), seed=seed + 50)
+    rng = np.random.default_rng(seed + 51)
+    jittered = dict(sb, crop=(sb["crop"] * (1 + JITTER * rng.standard_normal(sb["crop"].shape))
+                              ).astype(np.float32))
+    t0 = time.perf_counter()
+    runs = {"card": (dev, sb), "cpu": ("cpu", sb), "cpu jittered": ("cpu", jittered)}
+    losses, grads = {}, {}
+    for name, (d, batch) in runs.items():
+        st = TR.create_state(small, device=d, seed=seed + 52)
+        losses[name] = {k: v.item() for k, v in TR.train_step(st, batch).items()}
+        grads[name] = {n: p.grad.cpu() for n, p in st.model.named_parameters()}
+    loss_err = max(abs(v - losses["cpu"][k]) / max(abs(losses["cpu"][k]), 1e-6)
+                   for k, v in losses["card"].items())
+    if loss_err > 1e-4:
+        raise AssertionError(f"card vs CPU losses differ by {loss_err} relative: {losses}")
+    spread = grad_ratios(grads["cpu jittered"], grads["cpu"])
+    card = grad_ratios(grads["card"], grads["cpu"])
+    bar = max(GRAD_REL, GRAD_SPREAD * spread[-1][0])
+    bad = [r for r in card if r[0] > bar]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(card)} gradient leaves above {bar:.3e} of "
+                             f"their scale (CPU's own spread {spread[-1]}); worst {bad[-5:]}")
+    log(f"[rcpu] crop 96x128, blocks (4, 4, 4), batch 4: train_step card vs CPU plain path: "
+        f"losses within {loss_err:.3e} relative (bar 1e-4); gradient leaves against their "
+        f"scale: worst {card[-1][0]:.3e} ({card[-1][1]}), {sum(r[0] > GRAD_REL for r in card)} "
+        f"of {len(card)} above {GRAD_REL}, CPU's own spread under a {JITTER:g} relative "
+        f"jitter of the crop {spread[-1][0]:.3e}, bar {bar:.3e}; took "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -717,8 +1042,10 @@ def main(argv=None) -> int:
     train = run_training(torch, np, dev, args.seed, tables, save)
     save()
     run_card_vs_cpu(torch, np, dev, args.seed)
+    reg_entries = run_regression(torch, np, dev, args.seed, tables, save)
+    run_regression_card_vs_cpu(torch, np, dev, args.seed)
 
-    # 10. kernels line
+    # 14. kernels line
     kernels_line = {"kernels": [{
         "name": "sphere_conv_s1",
         "id": "B1",
@@ -735,7 +1062,7 @@ def main(argv=None) -> int:
         "bound_ms": total["bound_ms"],
         "bound_by": total_bound_by,
         "library_ms": None,
-    }] + train["entries"]}
+    }] + train["entries"] + reg_entries}
     log(smi)
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,13 +7,17 @@ never jax, flax, optax or any ``emlight_tpu`` module.
 
 - ``config``          frozen dataclass config tree (same defaults)
 - ``core``            sphere geometry (own copy) and device selection
-- ``nn``              sphere conv (plain version + CUDA kernel wrapper), SPADE
-                      generator, DenseNet-BC regressor
+- ``nn``              sphere conv and the dense layer's fused affine 3x3 conv
+                      (plain versions, autograd Functions, CUDA kernel
+                      wrappers), SPADE generator, discriminator, DenseNet-BC
+                      regressor
+- ``losses``          GAN objectives and the Sinkhorn anchor loss
 - ``kernels``         builds ``csrc/*.cu`` with nvcc for sm_90a and loads it
                       through ctypes, at first use
 - ``representation``  Gaussian-splat rasterizer
-- ``train``           eval entry points (regression predict, generator
-                      inference, the fused crop -> HDR env map pipeline) and
+- ``train``           entry points: serving (regression predict, generator
+                      inference, the fused crop -> HDR env map pipeline), GAN
+                      and regression training steps, synthetic batches, and
                       the weight bridge from JAX parameter trees
 
 Public functions keep the JAX layout: images are NHWC ``(B, H, W, C)``.

@@ -1,4 +1,4 @@
-"""Sphere / equirectangular geometry — own copy of the two grids the port needs.
+"""Sphere / equirectangular geometry — own copy of what the port needs.
 
 Same functions and caches as emlight_tpu/core/geometry.py:53-121 (that module
 is JAX-free, but the port imports nothing of the JAX package).
@@ -10,7 +10,7 @@ import functools
 
 import numpy as np
 
-__all__ = ["sphere_points", "equirect_xyz_splat"]
+__all__ = ["sphere_points", "geometric_points", "equirect_xyz_splat"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -32,6 +32,22 @@ def sphere_points(n: int = 128) -> np.ndarray:
     Cached per n; returns a copy.
     """
     return _sphere_points_cached(int(n)).copy()
+
+
+def geometric_points(n: int, anchor_depth) -> np.ndarray:
+    """GMLight variant: golden-spiral directions pushed to per-anchor depths,
+    (n, 3) float64. Only x and y scale with the depth; z stays on the unit
+    profile, as the reference has it (RegressionNetwork/gmloss/utils.py:63-73).
+    """
+    golden_angle = np.pi * (3.0 - np.sqrt(5.0))
+    theta = golden_angle * np.arange(n)
+    z = np.linspace(1 - 1.0 / n, 1.0 / n - 1, n)
+    radius = np.asarray(anchor_depth)
+    points = np.zeros((n, 3))
+    points[:, 0] = radius * np.cos(theta)
+    points[:, 1] = radius * np.sin(theta)
+    points[:, 2] = z
+    return points
 
 
 @functools.lru_cache(maxsize=None)

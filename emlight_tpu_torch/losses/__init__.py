@@ -1,1 +1,1 @@
-"""Losses of the port (GAN objectives)."""
+"""Losses of the port: GAN objectives and the Sinkhorn anchor loss."""

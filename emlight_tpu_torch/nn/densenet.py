@@ -1,10 +1,24 @@
-"""DenseNet-BC regression backbone (EMLight stage 1), eval forward.
+"""DenseNet-BC regression backbone (EMLight stage 1), eval and train forward.
 
 Port of emlight_tpu/nn/densenet.py:32-179 in the standard formulation:
 growth 12, blocks (16, 16, 16), compression 0.5, 24 init features, bn_size 4,
 a transition + trailing BatchNorm after EVERY block, global 4x4 avg-pool,
 fc -> 1024 and four linear heads. Kept quirk of the reference: no ReLU
 between a dense layer's norm2 and conv2.
+
+BatchNorm is flax's (nn/layers.py::BatchNorm): in train mode it normalizes
+with the batch's moments and keeps the BIASED variance in its running
+statistics. The train forward (``.train()``) is the standard graph under
+autograd with one fused step: each dense layer's norm2 -> conv2 runs as
+``fused_affine_conv3x3(h1, A, B, conv2)`` (kernels B7, B7', B8 on the card)
+with A = scale * rsqrt(var + eps) and B = bias - mean * A from h1's batch
+moments, through which autograd carries da and db back to h1. It computes
+what the JAX package's default train forward computes
+(emlight_tpu/nn/densenet_fast.py:371 ``train_apply``, whose concat-free
+buffer and block VJP are TPU memory layouts, not ported); it runs in the
+channels_last memory format, so the fused conv reads h1 as NHWC without a
+copy. The eval forward (``.eval()``) uses the running statistics and cuDNN
+convs throughout.
 
 Module names follow the JAX tree (``denseblock{i}_denselayer{j}``,
 ``transition{i}``, ``last_norm{i}``), so train/jax_weights.py maps parameters
@@ -22,7 +36,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import dense
+from .dense_conv import fused_affine_conv3x3
+from .layers import BatchNorm, dense
 
 __all__ = ["DenseNet"]
 
@@ -36,8 +51,10 @@ def _conv(cin: int, cout: int, k: int, generator: torch.Generator | None) -> nn.
     return conv
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5)
+def _bn(c: int) -> BatchNorm:
+    """flax BatchNorm with scale and bias on NCHW, under nn.BatchNorm2d's
+    state-dict names (the weight bridge fills them)."""
+    return BatchNorm(c, channel_dim=1, affine=True, torch_names=True)
 
 
 class _DenseLayer(nn.Module):
@@ -51,7 +68,13 @@ class _DenseLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.conv1(F.relu(self.norm1(x)))
-        h = self.conv2(self.norm2(h))  # no ReLU here (reference layer order)
+        # no ReLU between norm2 and conv2 (reference layer order)
+        if self.training:
+            a, b = self.norm2.train_affine(h)
+            h = fused_affine_conv3x3(h.permute(0, 2, 3, 1), a, b,
+                                     self.conv2.weight.permute(2, 3, 1, 0)).permute(0, 3, 1, 2)
+        else:
+            h = self.conv2(self.norm2(h))
         return torch.cat([x, h], dim=1)
 
 
@@ -102,7 +125,8 @@ class DenseNet(nn.Module):
         self.fc_ambient = dense(1024, 3, generator)
 
     def forward(self, crop: torch.Tensor) -> dict[str, torch.Tensor]:
-        x = crop.permute(0, 3, 1, 2).contiguous()
+        layout = torch.channels_last if self.training else torch.contiguous_format
+        x = crop.permute(0, 3, 1, 2).contiguous(memory_format=layout)
         x = F.relu(self.norm0(self.conv0(x)))
         for i, num_layers in enumerate(self.block_config, start=1):
             for j in range(1, num_layers + 1):

@@ -1,8 +1,9 @@
-"""Shared NN building blocks on NHWC tensors: spectral norm (eval and train
-forms), instance norm, torch-parity resizing and the discriminator's
-count-exclude average pool.
+"""Shared NN building blocks: spectral norm (eval and train forms), flax's
+BatchNorm, instance norm, torch-parity resizing and the discriminator's
+count-exclude average pool. NHWC unless a function says otherwise.
 
-Port of emlight_tpu/nn/layers.py.
+Port of emlight_tpu/nn/layers.py, plus the train-mode BatchNorm of
+emlight_tpu/nn/densenet_fast.py:171-211 (flax.linen.BatchNorm's semantics).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ["spectral_sigma", "spectral_normalize", "spectral_power_iteration", "l2_normalize",
-           "instance_norm", "resize_nearest", "resize_bilinear", "avg_pool_3x3s2",
+           "BatchNorm", "instance_norm", "resize_nearest", "resize_bilinear", "avg_pool_3x3s2",
            "full_f32_matmul", "dense"]
 
 
@@ -63,6 +64,87 @@ def spectral_power_iteration(kernel: torch.Tensor, u: torch.Tensor,
     wmat = kernel.detach().reshape(-1, kernel.shape[-1]).t()  # (out, rest)
     v = l2_normalize(wmat.t() @ u, eps)
     return l2_normalize(wmat @ v, eps), v
+
+
+class BatchNorm(nn.Module):
+    """flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5) over every axis but
+    ``channel_dim``.
+
+    Train: the batch's moments mean and mean of squares, the biased variance
+    var = max(0, mu2 - mean^2) (flax's fast variance), the output
+    (x - mean) * (rsqrt(var + eps) * scale) + bias, and the running statistics
+    updated as r = momentum * r + (1 - momentum) * batch, the BIASED variance
+    included (nn.BatchNorm2d would store the unbiased one). Eval: the running
+    statistics; on NCHW through F.batch_norm.
+
+    ``affine`` adds the parameters ``weight`` (flax's scale) and ``bias``.
+    ``torch_names`` names the running statistics as nn.BatchNorm2d does
+    (running_mean, running_var, num_batches_tracked), else ``mean`` and
+    ``var`` as flax does; the weight bridge (train/jax_weights.py) fills
+    either. num_batches_tracked is carried for that layout only and is not
+    counted.
+    """
+
+    def __init__(self, channels: int, *, channel_dim: int = -1, affine: bool = False,
+                 torch_names: bool = False, eps: float = 1e-5, momentum: float = 0.9):
+        super().__init__()
+        self.channel_dim = channel_dim
+        self.eps = eps
+        self.momentum = momentum
+        self._names = ("running_mean", "running_var") if torch_names else ("mean", "var")
+        self.register_buffer(self._names[0], torch.zeros(channels))
+        self.register_buffer(self._names[1], torch.ones(channels))
+        if torch_names:
+            self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
+        self.weight = nn.Parameter(torch.ones(channels)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(channels)) if affine else None
+
+    def running_stats(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return getattr(self, self._names[0]), getattr(self, self._names[1])
+
+    def _shape(self, v: torch.Tensor, ndim: int) -> torch.Tensor:
+        shape = [1] * ndim
+        shape[self.channel_dim] = -1
+        return v.reshape(shape)
+
+    def batch_moments(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean, biased var) of the batch, differentiable; updates the running
+        statistics (train mode only)."""
+        dims = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            rm, rv = self.running_stats()
+            rm.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+            rv.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        return mean, var
+
+    def train_affine(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Train mode as a per-channel affine y = x * a + b, with
+        a = scale * rsqrt(var + eps) and b = bias - mean * a from the batch's
+        moments (differentiable; the running statistics are updated)."""
+        mean, var = self.batch_moments(x)
+        a = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            a = a * self.weight
+        b = -mean * a
+        if self.bias is not None:
+            b = b + self.bias
+        return a, b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            rm, rv = self.running_stats()
+            if self.channel_dim == 1:
+                return F.batch_norm(x, rm, rv, self.weight, self.bias, False, 0.0, self.eps)
+            mean, mul = rm, torch.rsqrt(rv + self.eps)
+        else:
+            mean, var = self.batch_moments(x)
+            mul = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
+        y = (x - self._shape(mean, x.dim())) * self._shape(mul, x.dim())
+        return y if self.bias is None else y + self._shape(self.bias, x.dim())
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import (
+    BatchNorm,
     dense,
     instance_norm,
     l2_normalize,
@@ -116,32 +117,6 @@ class SNSphereConv(SphereConv2D):
         return sphere_conv(x.to(cdt).contiguous(), kernel.to(cdt), self.bias, self.stride)
 
 
-class _ParamFreeBatchNorm(nn.Module):
-    """BatchNorm without affine on NHWC, flax.linen.BatchNorm's semantics.
-
-    Eval: (x - running mean) * rsqrt(running var + eps). Train: the batch's
-    mean and biased variance over (B, H, W), and the running statistics
-    updated as r = momentum * r + (1 - momentum) * batch, with the BIASED
-    variance as flax keeps it (F.batch_norm would store the unbiased one).
-    """
-
-    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
-        super().__init__()
-        self.eps = eps
-        self.momentum = momentum
-        self.register_buffer("mean", torch.zeros(channels))
-        self.register_buffer("var", torch.ones(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return (x - self.mean) * torch.rsqrt(self.var + self.eps)
-        var, mean = torch.var_mean(x, dim=(0, 1, 2), unbiased=False)
-        with torch.no_grad():
-            self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
-            self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
-        return (x - mean) * torch.rsqrt(var + self.eps)
-
-
 class SPADE(nn.Module):
     """Spatially-adaptive denormalization conditioned on the env-map guide.
 
@@ -155,7 +130,7 @@ class SPADE(nn.Module):
         super().__init__()
         if norm_type not in ("syncbatch", "batch", "instance"):
             raise ValueError(f"unknown SPADE norm {norm_type!r}")
-        self.param_free_norm = None if norm_type == "instance" else _ParamFreeBatchNorm(norm_nc)
+        self.param_free_norm = None if norm_type == "instance" else BatchNorm(norm_nc)
         # gamma and beta convs share the input: ONE conv with 2C outputs
         self.mlp_gammabeta = SphereConv2D(nhidden, 2 * norm_nc, compute_dtype=compute_dtype,
                                           generator=generator)

@@ -5,6 +5,8 @@ Kernels (``KERNELS`` maps each wrapper to its TPU kernel and source):
 - ``sphere_conv_s1``    B1, forward at stride 1     (csrc/sphere_conv_s1.cu)
 - ``sphere_conv_s2``    B2, forward at stride 2     (csrc/sphere_conv_s2.cu)
 - ``sphere_conv_dx_s1`` B3, dx at stride 1          (csrc/sphere_conv_dx.cu)
+- ``sphere_conv_dx_s1_triple`` B6, dx at stride 1 on the small maps
+                                                    (csrc/sphere_conv_dx_triple.cu)
 - ``sphere_conv_dx_s2`` B5, dx at stride 2          (csrc/sphere_conv_dx.cu)
 - ``sphere_conv_dk``    B4, dK at strides 1 and 2   (csrc/sphere_conv_dk.cu)
 
@@ -28,17 +30,17 @@ kernel or raises. Each wrapper counts its launches in ``.launches``.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from .kernel_launch import KERNEL_DTYPES, entry, on_cuda, raise_on
 from .sphere_conv import sphere_conv_plain, sphere_taps
 
 __all__ = ["structured_tables", "scalar_weight_tables", "sphere_conv_s1", "sphere_conv_s2",
-           "sphere_conv_dx", "sphere_conv_dx_s1", "sphere_conv_dx_s2", "sphere_conv_dk",
-           "KERNELS"]
+           "sphere_conv_dx", "sphere_conv_dx_s1", "sphere_conv_dx_s1_triple", "sphere_conv_dx_s2",
+           "sphere_conv_dk", "triple_tiles", "KERNELS", "UMAJOR_MIN_PIXELS"]
 
 # wrapper name -> (TPU kernel id, source in the repo, file:line of the TPU kernel)
 KERNELS = {
@@ -48,6 +50,8 @@ KERNELS = {
                        "emlight_tpu/nn/sphere_conv_pallas.py:113"),  # _kernel, stride 2
     "sphere_conv_dx_s1": ("B3", "emlight_tpu_torch/csrc/sphere_conv_dx.cu",
                           "emlight_tpu/nn/sphere_conv_vjp.py:199"),  # _dx_kernel_s1_umajor
+    "sphere_conv_dx_s1_triple": ("B6", "emlight_tpu_torch/csrc/sphere_conv_dx_triple.cu",
+                                 "emlight_tpu/nn/sphere_conv_vjp.py:159"),  # _dx_kernel_s1
     "sphere_conv_dx_s2": ("B5", "emlight_tpu_torch/csrc/sphere_conv_dx.cu",
                           "emlight_tpu/nn/sphere_conv_vjp.py:293"),  # _dx_kernel_s2
     "sphere_conv_dk": ("B4", "emlight_tpu_torch/csrc/sphere_conv_dk.cu",
@@ -141,27 +145,12 @@ def _device_inverse_tables(h: int, w: int, stride: int, device: str):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in tabs), fanin
 
 
-_DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-
-@functools.lru_cache(maxsize=None)
-def _entry(lib_name: str, dtype: torch.dtype, n_ptr: int, n_int: int):
-    """The C function ``<lib_name>_<f32|bf16>`` of csrc/<lib_name>.cu, taking
-    n_ptr pointers, n_int ints and the stream."""
-    from ..kernels import load
-
-    fn = getattr(load(lib_name), f"{lib_name}_{_DTYPE_SUFFIX[dtype]}")
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check_pair(a: torch.Tensor, b: torch.Tensor, names: str) -> None:
     """Both 4-d, contiguous, of one kernel dtype, on one device."""
     for t in (a, b):
         if t.dim() != 4:
             raise ValueError(f"{names} must be 4-d, got {tuple(a.shape)} and {tuple(b.shape)}")
-    if a.dtype not in _DTYPE_SUFFIX:
+    if a.dtype not in KERNEL_DTYPES:
         raise TypeError(f"{names} must be float32 or bfloat16, got {a.dtype}")
     if b.dtype != a.dtype:
         raise TypeError(f"{names} differ in dtype: {a.dtype} and {b.dtype}")
@@ -186,20 +175,6 @@ def _validate(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None,
             raise ValueError("bias must be contiguous on x's device")
 
 
-def _on_cuda(x: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises for other devices."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on cpu or cuda, got {x.device}")
-    return True
-
-
-def _raise_on(rc: int, what: str, detail: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed with CUDA error {rc} at {detail}")
-
-
 def _forward(x, kernel, bias, stride: int, lib_name: str) -> torch.Tensor:
     _validate(x, kernel, bias, stride)
     b, h, w, cin = x.shape
@@ -210,12 +185,12 @@ def _forward(x, kernel, bias, stride: int, lib_name: str) -> torch.Tensor:
     out = torch.empty(b, h // stride, w // stride, cout, dtype=torch.float32, device=x.device)
     # the launch goes to the current device: make it x's
     with torch.cuda.device(x.device):
-        rc = _entry(lib_name, x.dtype, 8, 5)(
+        rc = entry(lib_name, lib_name, x.dtype, 8, 5)(
             x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), rows.data_ptr(),
             shifts.data_ptr(), w0.data_ptr(), jdev.data_ptr(), out.data_ptr(),
             b, h, w, cin, cout, torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _raise_on(rc, lib_name, f"x {tuple(x.shape)} {x.dtype}, cout {cout}")
+    raise_on(rc, lib_name, f"x {tuple(x.shape)} {x.dtype}, cout {cout}")
     return out
 
 
@@ -227,7 +202,7 @@ def sphere_conv_s1(x: torch.Tensor, kernel: torch.Tensor,
     CPU tensor: the plain version. CUDA tensor: one launch of the CUDA kernel
     on the current stream, counted in ``sphere_conv_s1.launches``.
     """
-    if not _on_cuda(x, "sphere_conv_s1"):
+    if not on_cuda(x, "sphere_conv_s1"):
         return sphere_conv_plain(x, kernel, bias, 1)
     out = _forward(x, kernel, bias, 1, "sphere_conv_s1")
     sphere_conv_s1.launches += 1
@@ -242,7 +217,7 @@ def sphere_conv_s2(x: torch.Tensor, kernel: torch.Tensor,
     CPU tensor: the plain version. CUDA tensor: one launch of the CUDA kernel,
     counted in ``sphere_conv_s2.launches``.
     """
-    if not _on_cuda(x, "sphere_conv_s2"):
+    if not on_cuda(x, "sphere_conv_s2"):
         return sphere_conv_plain(x, kernel, bias, 2)
     out = _forward(x, kernel, bias, 2, "sphere_conv_s2")
     sphere_conv_s2.launches += 1
@@ -262,13 +237,13 @@ def _dx(g: torch.Tensor, kernel: torch.Tensor, x_shape, stride: int) -> torch.Te
     u = torch.empty(b, 9, h // stride, w // stride, cin, dtype=torch.float32, device=g.device)
     dx = torch.empty(b, h, w, cin, dtype=torch.float32, device=g.device)
     with torch.cuda.device(g.device):
-        rc = _entry("sphere_conv_dx", g.dtype, 9, 7)(
+        rc = entry("sphere_conv_dx", "sphere_conv_dx", g.dtype, 9, 7)(
             g.data_ptr(), kernel.data_ptr(), u.data_ptr(), orow.data_ptr(), tap.data_ptr(),
             shift.data_ptr(), w0.data_ptr(), jdev.data_ptr(), dx.data_ptr(),
             b, h, w, cin, cout, stride, fanin,
             torch.cuda.current_stream(g.device).cuda_stream,
         )
-    _raise_on(rc, f"sphere_conv_dx_s{stride}", f"g {tuple(g.shape)} {g.dtype}, cin {cin}")
+    raise_on(rc, f"sphere_conv_dx_s{stride}", f"g {tuple(g.shape)} {g.dtype}, cin {cin}")
     return dx
 
 
@@ -280,12 +255,53 @@ def sphere_conv_dx_s1(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.T
     ``inverse_tables`` (two launches on the current stream), counted once in
     ``sphere_conv_dx_s1.launches``.
     """
-    if not _on_cuda(g, "sphere_conv_dx_s1"):
+    if not on_cuda(g, "sphere_conv_dx_s1"):
         from .sphere_conv_vjp import dx_plain
 
         return dx_plain(g, kernel, x_shape, 1)
     dx = _dx(g, kernel, x_shape, 1)
     sphere_conv_dx_s1.launches += 1
+    return dx
+
+
+def sphere_conv_dx_s1_triple(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.Tensor:
+    """dx (B, H, W, Cin) f32 of a stride-1 sphere conv, as ``sphere_conv_dx_s1``,
+    by the per-triple kernel: no U scratch in device memory; the row
+    u = g[out_row] @ K_tᵀ is recomputed in the block of each input row that
+    reads it, once per run of ``inverse_tables`` slots sharing (out_row, tap).
+    W at most 128.
+
+    CPU tensor: ``dx_plain``. CUDA tensor: the kernel and, when cout is split
+    (``triple_tiles``), the fixed-order sum of the splits' partial dx (one or
+    two launches on the current stream), counted once in
+    ``sphere_conv_dx_s1_triple.launches``.
+    """
+    if not on_cuda(g, "sphere_conv_dx_s1_triple"):
+        from .sphere_conv_vjp import dx_plain
+
+        return dx_plain(g, kernel, x_shape, 1)
+    _check_pair(g, kernel, "g and kernel")
+    b, h, w, cin = (int(v) for v in x_shape)
+    cout = g.shape[3]
+    if tuple(g.shape) != (b, h, w, cout):
+        raise ValueError(f"g {tuple(g.shape)} is not the stride-1 output of x {tuple(x_shape)}")
+    if tuple(kernel.shape) != (3, 3, cin, cout):
+        raise ValueError(f"kernel must be (3, 3, {cin}, {cout}), got {tuple(kernel.shape)}")
+    if w > _TRIPLE_MAX_W:
+        raise ValueError(f"sphere_conv_dx_s1_triple takes W <= {_TRIPLE_MAX_W}, got {w}")
+    (orow, tap, shift, w0, jdev), fanin = _device_inverse_tables(h, w, 1, str(g.device))
+    bb, ct, n_split = triple_tiles(b, h, w, cin, cout)
+    dx = torch.empty(b, h, w, cin, dtype=torch.float32, device=g.device)
+    partial = (torch.empty(n_split, b, h, w, cin, dtype=torch.float32, device=g.device)
+               if n_split > 1 else dx)
+    with torch.cuda.device(g.device):
+        rc = entry("sphere_conv_dx_triple", "sphere_conv_dx_triple", g.dtype, 9, 9)(
+            g.data_ptr(), kernel.data_ptr(), orow.data_ptr(), tap.data_ptr(), shift.data_ptr(),
+            w0.data_ptr(), jdev.data_ptr(), partial.data_ptr(), dx.data_ptr(), b, h, w, cin,
+            cout, fanin, bb, ct, n_split, torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    raise_on(rc, "sphere_conv_dx_s1_triple", f"g {tuple(g.shape)} {g.dtype}, cin {cin}")
+    sphere_conv_dx_s1_triple.launches += 1
     return dx
 
 
@@ -297,7 +313,7 @@ def sphere_conv_dx_s2(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.T
     even and odd input columns written in place; counted in
     ``sphere_conv_dx_s2.launches``.
     """
-    if not _on_cuda(g, "sphere_conv_dx_s2"):
+    if not on_cuda(g, "sphere_conv_dx_s2"):
         from .sphere_conv_vjp import dx_plain
 
         return dx_plain(g, kernel, x_shape, 2)
@@ -306,9 +322,39 @@ def sphere_conv_dx_s2(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.T
     return dx
 
 
+_TRIPLE_ROWS = 64            # rows of u (images x W) per B6 block
+_TRIPLE_TARGET_BLOCKS = 264  # 2 blocks per SM of an H100's 132
+
+
+def triple_tiles(b: int, h: int, w: int, cin: int, cout: int) -> tuple[int, int, int]:
+    """(images per block, cin tile, cout splits) of B6's grid: about 64 rows
+    of u per block, 4 x 4 values per thread in at most 256 threads and a cin
+    tile of at most 64, then cout split in whole 32-wide slabs until the grid
+    has about 2 blocks per SM."""
+    bb = min(b, max(1, _TRIPLE_ROWS // w))
+    row_groups = _cdiv(bb * w, 4)
+    ct = min(64, (256 // row_groups) * 4, _cdiv(cin, 4) * 4)
+    blocks = h * _cdiv(b, bb) * _cdiv(cin, ct)
+    slabs = _cdiv(cout, 32)
+    per = _cdiv(slabs, max(1, min(slabs, _cdiv(_TRIPLE_TARGET_BLOCKS, blocks))))
+    return bb, ct, _cdiv(slabs, per)
+
+
+# stride-1 dx of a map below this many pixels takes the per-triple kernel B6,
+# at or above it B3, as the JAX package routes it
+# (emlight_tpu/nn/sphere_conv_vjp.py:290 _UMAJOR_MIN_PIXELS)
+UMAJOR_MIN_PIXELS = 2048
+_TRIPLE_MAX_W = 128  # B6 holds a whole row of g per block
+
+
 def sphere_conv_dx(g: torch.Tensor, kernel: torch.Tensor, x_shape, stride: int) -> torch.Tensor:
-    """dx by stride: ``sphere_conv_dx_s1`` (B3) or ``sphere_conv_dx_s2`` (B5)."""
+    """dx by stride and map size: at stride 1 ``sphere_conv_dx_s1_triple``
+    (B6) below UMAJOR_MIN_PIXELS pixels, else ``sphere_conv_dx_s1`` (B3); at
+    stride 2 ``sphere_conv_dx_s2`` (B5)."""
     if stride == 1:
+        h, w = int(x_shape[1]), int(x_shape[2])
+        if h * w < UMAJOR_MIN_PIXELS and w <= _TRIPLE_MAX_W:
+            return sphere_conv_dx_s1_triple(g, kernel, x_shape)
         return sphere_conv_dx_s1(g, kernel, x_shape)
     if stride == 2:
         return sphere_conv_dx_s2(g, kernel, x_shape)
@@ -342,7 +388,7 @@ def sphere_conv_dk(x: torch.Tensor, g: torch.Tensor, stride: int = 1) -> torch.T
     a fixed order (two launches on the current stream), counted once in
     ``sphere_conv_dk.launches``.
     """
-    if not _on_cuda(x, "sphere_conv_dk"):
+    if not on_cuda(x, "sphere_conv_dk"):
         from .sphere_conv_vjp import dk_plain
 
         return dk_plain(x, g, stride)
@@ -359,17 +405,18 @@ def sphere_conv_dk(x: torch.Tensor, g: torch.Tensor, stride: int = 1) -> torch.T
     partial = torch.empty(n_chunks, 9, cin, cout, dtype=torch.float32, device=x.device)
     dk = torch.empty(3, 3, cin, cout, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = _entry("sphere_conv_dk", x.dtype, 8, 8)(
+        rc = entry("sphere_conv_dk", "sphere_conv_dk", x.dtype, 8, 8)(
             x.data_ptr(), g.data_ptr(), rows.data_ptr(), shifts.data_ptr(), w0.data_ptr(),
             jdev.data_ptr(), partial.data_ptr(), dk.data_ptr(),
             b, h, w, cin, cout, stride, chunk, n_chunks,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    _raise_on(rc, "sphere_conv_dk", f"x {tuple(x.shape)} {x.dtype}, cout {cout}, stride {stride}")
+    raise_on(rc, "sphere_conv_dk", f"x {tuple(x.shape)} {x.dtype}, cout {cout}, stride {stride}")
     sphere_conv_dk.launches += 1
     return dk
 
 
-for _fn in (sphere_conv_s1, sphere_conv_s2, sphere_conv_dx_s1, sphere_conv_dx_s2, sphere_conv_dk):
+for _fn in (sphere_conv_s1, sphere_conv_s2, sphere_conv_dx_s1, sphere_conv_dx_s1_triple,
+            sphere_conv_dx_s2, sphere_conv_dk):
     _fn.launches = 0
 del _fn

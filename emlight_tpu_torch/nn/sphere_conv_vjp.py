@@ -18,8 +18,9 @@ Two implementations of dx and dK:
 - ``dx_plain`` / ``dk_plain``: plain PyTorch (ports of ``_dx_gather_flat`` and
   ``_dk_gather``). They serve CPU tensors and are the oracles the CUDA
   kernels are checked against.
-- the CUDA kernels B3/B5 (dx, stride 1/2) and B4 (dK), through the wrappers
-  in ``nn/sphere_conv_kernel.py``.
+- the CUDA kernels B3/B6/B5 (dx: stride 1 on maps of at least / below 2048
+  pixels, stride 2) and B4 (dK), through the wrappers in
+  ``nn/sphere_conv_kernel.py``.
 
 ``SphereConvFunction`` ties forward and backward together; the wrappers pick
 the kernel for a CUDA tensor and the plain version for a CPU tensor.
@@ -177,7 +178,7 @@ class SphereConvFunction(torch.autograd.Function):
     kernel (3, 3, Cin, Cout) in x's dtype, bias (Cout,) f32 or None ->
     (B, H/stride, W/stride, Cout) f32.
 
-    Forward: B1 (stride 1) or B2 (stride 2). Backward: dx by B3 or B5 only if
+    Forward: B1 (stride 1) or B2 (stride 2). Backward: dx by B3, B6 or B5 only if
     x needs a gradient, dK by B4 only if the kernel does, db = Σ g. The two
     checks do what XLA's dead-code elimination did in the JAX package: the
     SPADE ``mlp_shared`` convs read the constant guide and need no dx; a

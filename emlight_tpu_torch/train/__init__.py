@@ -1,1 +1,1 @@
-from . import data, jax_weights, pipeline, projector, regression  # noqa: F401
+from . import data, jax_weights, optim, pipeline, projector, regression  # noqa: F401

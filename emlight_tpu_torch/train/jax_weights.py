@@ -21,7 +21,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-__all__ = ["densenet_state_from_jax", "generator_state_from_jax",
+__all__ = ["densenet_state_from_jax", "densenet_grads_from_jax", "generator_state_from_jax",
            "discriminator_state_from_jax"]
 
 
@@ -41,8 +41,7 @@ def _f32(a: np.ndarray) -> np.ndarray:
     return a.astype(np.float32)
 
 
-def densenet_state_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
-    """DenseNet (nn/densenet.py) params + batch_stats -> port state_dict."""
+def _densenet_params(params: Mapping) -> dict[str, np.ndarray]:
     sd = {}
     for path, a in _walk(params):
         mod, leaf = ".".join(path[:-1]), path[-1]
@@ -54,6 +53,12 @@ def densenet_state_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, 
             sd[f"{mod}.bias"] = _f32(a)
         else:
             raise KeyError(f"unexpected DenseNet parameter {'/'.join(path)}")
+    return sd
+
+
+def densenet_state_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, torch.Tensor]:
+    """DenseNet (nn/densenet.py) params + batch_stats -> port state_dict."""
+    sd = _densenet_params(params)
     for path, a in _walk(batch_stats):
         mod, leaf = ".".join(path[:-1]), path[-1]
         if leaf not in ("mean", "var"):
@@ -61,6 +66,13 @@ def densenet_state_from_jax(params: Mapping, batch_stats: Mapping) -> dict[str, 
         sd[f"{mod}.running_{leaf}"] = _f32(a)
         sd[f"{mod}.num_batches_tracked"] = np.zeros((), np.int64)
     return _tensors(sd)
+
+
+def densenet_grads_from_jax(grads: Mapping) -> dict[str, torch.Tensor]:
+    """A DenseNet gradient tree (shaped as its params) -> {port parameter
+    name: gradient in the parameter's layout}, to compare leaf by leaf with
+    the port's ``.grad``."""
+    return _tensors(_densenet_params(grads))
 
 
 def generator_state_from_jax(params: Mapping, stats: Mapping) -> dict[str, torch.Tensor]:

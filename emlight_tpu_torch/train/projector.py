@@ -33,6 +33,7 @@ from ..losses.gan import cosine_loss, feature_matching_loss, gan_loss
 from ..nn.discriminator import MultiscaleDiscriminator
 from ..nn.spade import SPADEGenerator
 from ..representation.splat import render_anchor_params
+from .optim import clip_by_global_norm
 
 __all__ = ["make_models", "make_discriminator", "make_guide", "inference", "compute_dtype",
            "ProjectorState", "create_state", "generator_step", "discriminator_step"]
@@ -167,19 +168,9 @@ def _run_d(state: ProjectorState, guide: torch.Tensor, fake: torch.Tensor, real:
     return pred_fake, pred_real
 
 
-def _clip_grad_norm(params, max_norm: float) -> None:
-    """optax.clip_by_global_norm: scale every gradient by max_norm / norm
-    when the global norm exceeds max_norm."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    for g in grads:
-        g.mul_(scale)
-
-
 def _update(opt: torch.optim.Adam, lr: float, params, clip: float) -> None:
     if clip and clip > 0:
-        _clip_grad_norm(params, clip)
+        clip_by_global_norm(params, clip)
     for group in opt.param_groups:
         group["lr"] = lr
     opt.step()

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from emlight_tpu_torch.nn import dense_conv as tdc
+from emlight_tpu_torch.nn import dense_conv_kernel as tdk
 from emlight_tpu_torch.nn import sphere_conv as tsc
 from emlight_tpu_torch.nn import sphere_conv_kernel as tker
 from emlight_tpu_torch.nn import sphere_conv_vjp as tvjp
@@ -142,7 +144,9 @@ def test_dx_kernel_matches_plain(card, dtype, shape, cout, stride):
     x, k, g = _grad_inputs(shape, cout, stride, card)
     dt = getattr(torch, dtype)
     g, k = g.to(dt), k.to(dt)
-    counter = tker.sphere_conv_dx_s1 if stride == 1 else tker.sphere_conv_dx_s2
+    small = shape[1] * shape[2] < tker.UMAJOR_MIN_PIXELS
+    counter = (tker.sphere_conv_dx_s2 if stride == 2 else
+               tker.sphere_conv_dx_s1_triple if small else tker.sphere_conv_dx_s1)
     before = counter.launches
     dx = tker.sphere_conv_dx(g, k, tuple(x.shape), stride)
     torch.cuda.synchronize()
@@ -182,7 +186,7 @@ def test_function_backward_uses_the_kernels(card, stride):
     x, k, bias = (t.requires_grad_() for t in (x, k, bias))
     tgt = torch.rand(2, 16 // stride, 32 // stride, 12, device=card)
     counters = (tker.sphere_conv_s1 if stride == 1 else tker.sphere_conv_s2,
-                tker.sphere_conv_dx_s1 if stride == 1 else tker.sphere_conv_dx_s2,
+                tker.sphere_conv_dx_s1_triple if stride == 1 else tker.sphere_conv_dx_s2,
                 tker.sphere_conv_dk)
     before = [c.launches for c in counters]
     got = torch.autograd.grad(((tsc.sphere_conv(x, k, bias, stride) - tgt) ** 2).sum(),
@@ -206,3 +210,115 @@ def test_grad_wrappers_reject_what_the_kernels_do_not_take(card):
         tker.sphere_conv_dk(x, g, 3)
     with pytest.raises(ValueError):
         tker.sphere_conv_s2(x[:, :7], k[:, :, :8], None)
+
+
+# B3 and B6 each at every stride-1 gradient shape either can take (B6 holds
+# rows of at most 128 columns), whichever of the two the routing picks
+S1_SHAPES = [sc for sc in GRAD_SHAPES if sc[2] == 1]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout,stride", S1_SHAPES)
+def test_dx_b3_and_b6_match_plain(card, dtype, shape, cout, stride):
+    x, k, g = _grad_inputs(shape, cout, stride, card)
+    dt = getattr(torch, dtype)
+    g, k = g.to(dt), k.to(dt)
+    ref = tvjp.dx_plain(g, k, tuple(x.shape), 1)
+    wrappers = [tker.sphere_conv_dx_s1]
+    if shape[2] <= 128:
+        wrappers.append(tker.sphere_conv_dx_s1_triple)
+    for fn in wrappers:
+        before = fn.launches
+        dx = fn(g, k, tuple(x.shape))
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        _close(dx, ref, dtype)
+
+
+def test_dx_triple_skips_padded_slots(card):
+    """An inf in g reaches no dx value through a padded (weight 0) slot or
+    the dead column: wherever the plain version is finite, B6 is too."""
+    x, k, g = _grad_inputs((1, 8, 16, 8), 8, 1, card)
+    g[0, 3, 5, 2] = float("inf")
+    dx = tker.sphere_conv_dx_s1_triple(g, k, tuple(x.shape))
+    ref = tvjp.dx_plain(g, k, tuple(x.shape), 1)
+    assert torch.equal(torch.isfinite(dx), torch.isfinite(ref))
+
+
+# the regression step's three dense-layer shapes (48 -> 12 channels) at
+# batch 2, one at batch 16, and ragged ones: h = 8 (one row tile), h and w
+# off the 8 x 32 tile, cin 5 -> cout 3, one pixel
+DENSE_SHAPES = [((2, 192, 256, 48), 12), ((2, 96, 128, 48), 12), ((2, 48, 64, 48), 12),
+                ((16, 48, 64, 48), 12), ((2, 8, 16, 48), 12), ((2, 10, 12, 5), 3),
+                ((3, 13, 37, 20), 7), ((1, 1, 1, 3), 2)]
+
+
+def _dense_inputs(shape, cout, device, seed=2):
+    """x, a, b, kernel and a cotangent g scaled as the gradient of a loss
+    averaged over the output (so dK, da and db stay O(1))."""
+    rng = np.random.default_rng(seed)
+    cin = shape[-1]
+    arrays = (rng.standard_normal(shape), rng.uniform(0.5, 1.5, cin), rng.normal(0, 0.3, cin),
+              rng.normal(0, 1 / np.sqrt(9 * cin), (3, 3, cin, cout)),
+              rng.standard_normal((*shape[:3], cout)) / np.sqrt(np.prod(shape[:3])))
+    return (torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout", DENSE_SHAPES)
+def test_dense_conv_kernels_match_plain(card, dtype, shape, cout):
+    """B7, B7' (dx, da, db) and B8 against their plain versions: f32 at
+    rtol = atol = 1e-4, the long sums over pixels (dK, da, db) at rtol 1e-3;
+    bf16 within 2e-2 of max|ref|."""
+    x, a, b, k, g = _dense_inputs(shape, cout, card)
+    dt = getattr(torch, dtype)
+    x, k, g = x.to(dt), k.to(dt), g.to(dt)
+    counters = (tdk.dense_conv_fwd, tdk.dense_conv_dx, tdk.dense_conv_dk)
+    before = [c.launches for c in counters]
+    out = tdk.dense_conv_fwd(x, a, b, k)
+    dx, da, db = tdk.dense_conv_dx(g, x, a, k)
+    dk = tdk.dense_conv_dk(x, g, a, b)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    assert out.shape == (*shape[:3], cout) and dk.shape == (3, 3, shape[-1], cout)
+    _close(out, tdc.conv3x3_nhwc_reference(x, a, b, k), dtype)
+    rdx, rda, rdb = tdc.conv3x3_dx_plain(g, x, a, k)
+    _close(dx, rdx, dtype)
+    _close(da, rda, dtype, rtol=1e-3)
+    _close(db, rdb, dtype, rtol=1e-3)
+    _close(dk, tdc.conv3x3_dk_plain(x, g, a, b), dtype, rtol=1e-3)
+
+
+def test_dense_conv_reductions_are_deterministic(card):
+    x, a, b, k, g = _dense_inputs((4, 48, 64, 48), 12, card)
+    first = (*tdk.dense_conv_dx(g, x, a, k)[1:], tdk.dense_conv_dk(x, g, a, b))
+    second = (*tdk.dense_conv_dx(g, x, a, k)[1:], tdk.dense_conv_dk(x, g, a, b))
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+
+
+def test_fused_affine_conv_backward_uses_the_kernels(card):
+    """fused_affine_conv3x3 on the card: all four gradients against autograd
+    of the plain forward, each kernel launched once."""
+    x, a, b, k, g = _dense_inputs((2, 24, 40, 48), 12, card)
+    x, a, b, k = (t.requires_grad_() for t in (x, a, b, k))
+    counters = (tdk.dense_conv_fwd, tdk.dense_conv_dx, tdk.dense_conv_dk)
+    before = [c.launches for c in counters]
+    got = torch.autograd.grad((tdc.fused_affine_conv3x3(x, a, b, k) * g).sum(), (x, a, b, k))
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    ref = torch.autograd.grad((tdc.conv3x3_nhwc_reference(x, a, b, k) * g).sum(), (x, a, b, k))
+    for p, q in zip(got, ref):
+        torch.testing.assert_close(p, q, rtol=1e-3, atol=1e-4)
+
+
+def test_dense_conv_wrappers_reject_what_the_kernels_do_not_take(card):
+    x, a, b, k, g = _dense_inputs((1, 8, 16, 8), 4, card)
+    with pytest.raises(TypeError):
+        tdk.dense_conv_fwd(x, a, b, k.bfloat16())
+    with pytest.raises(TypeError):
+        tdk.dense_conv_fwd(x, a.double(), b, k)
+    with pytest.raises(TypeError):
+        tdk.dense_conv_dx(g.half(), x.half(), a, k.half())
+    with pytest.raises(ValueError):
+        tdk.dense_conv_dk(x.transpose(1, 2), g, a, b)
+    with pytest.raises(ValueError):
+        tdk.dense_conv_fwd(x, a[:4], b, k)

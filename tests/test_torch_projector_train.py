@@ -30,6 +30,7 @@ from emlight_tpu_torch.train.jax_weights import (
     discriminator_state_from_jax,
     generator_state_from_jax,
 )
+from emlight_tpu_torch.train.optim import clip_by_global_norm
 from torch_port_helpers import port_projector_cfg
 
 TINY = dataclasses.replace(
@@ -205,7 +206,7 @@ def test_clip_grad_norm_matches_optax(max_norm):
     params = [torch.nn.Parameter(torch.zeros(g.shape)) for g in grads]
     for p, g in zip(params, grads):
         p.grad = torch.from_numpy(g.copy())
-    TP._clip_grad_norm(params, max_norm)
+    clip_by_global_norm(params, max_norm)
     tx = optax.clip_by_global_norm(max_norm)
     ref, _ = tx.update([jnp.asarray(g) for g in grads], tx.init(grads))
     for p, r in zip(params, ref):

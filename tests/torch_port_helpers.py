@@ -1,11 +1,14 @@
 """Shared helpers of the tests/test_torch_*.py files: JAX-initialised weights
-as NumPy trees, and the port's config for a JAX config."""
+as NumPy trees, the port's config for a JAX config, and a fixture that runs a
+module's torch work on one thread."""
 
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from conftest import jit0
 from emlight_tpu.train import projector as P
@@ -61,3 +64,16 @@ def port_regression_cfg(cfg):
 def port_projector_cfg(cfg):
     fields = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "anchors"}
     return tcfg.ProjectorConfig(anchors=port_anchor_cfg(cfg.anchors), **fields)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread for the importing module: its small shapes
+    gain nothing from more, and the suite runs several worker processes on
+    the same cores, where torch's thread pools contend (measured: a 9-step
+    loop of 0.5 s took 75 s with 4 workers). The setting is restored after
+    the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
