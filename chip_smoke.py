@@ -19,9 +19,12 @@ version. Phases, each of which raises on failure:
             kernel's launch count read around them (44 per request); env maps
             checked; one batch-1 request compared with the same modules on
             the CPU (plain path)
-5. timing   CUDA events, median of 10 after warm-up: per-shape kernel vs
-            plain version, regressor, generator and pipeline at batch 8;
-            one profiled request: device busy time and the top device work
+5. timing   CUDA events, median of 10 after warm-up: per-shape kernel (f32
+            and bf16) vs plain version, its bounds on the CUDA cores and on
+            the tensor cores (tc) and cuDNN's dense 3x3 conv of the same size
+            (a yardstick, not the same function); regressor, generator and
+            pipeline at batch 8; one profiled request: device busy time and
+            the top device work
 6. train    3 alternating generator + discriminator steps of batch 8
             (create_state, ProjectorConfig(), VGG off), every kernel's launch
             count read around each step; losses finite, parameters, D's u and
@@ -29,9 +32,10 @@ version. Phases, each of which raises on failure:
 7. tcheck   every training kernel (B2 forward, B3/B6/B5 dx, B4 dK) vs its
             plain version at every distinct training shape, f32 and bf16, at
             batch 2 and at the main path's batch (the timed inputs)
-8. ttiming  per-shape kernel vs plain version vs bound, and B3 against B6 at
-            every stride-1 dx shape; the G step and the D step at batch 8;
-            one profiled G step: idle share, top device work
+8. ttiming  per-shape kernel vs plain version vs bounds (B1 also vs the
+            cuDNN yardstick), and B3 against B6 at every stride-1 dx shape;
+            the G step and the D step at batch 8; one profiled G step: idle
+            share, top device work
 9. tcpu     one G step and one D step at batch 2 on a reduced config, card
             against the CPU plain path: losses, and every gradient leaf
             within a bar measured from the CPU's own spread under a jitter
@@ -41,11 +45,12 @@ version. Phases, each of which raises on failure:
             on one batch, the loss falls
 11. rcheck  B7, B7' (dx, da, db) and B8 vs their plain versions at the
             path's shapes at batch 2 and 16 and two ragged ones, f32 and bf16
-12. rtiming per shape: kernel, plain version, cuDNN call, bound; the step at
+12. rtiming per shape: kernel, plain version, cuDNN call, bounds; the step at
             batch 16; one profiled step: idle share, top device work
 13. rcpu    one train_step at batch 4 on a reduced config, card against the
             CPU plain path: losses and every gradient leaf (measured bar)
-14. kernels one JSON line with every ported kernel
+14. kernels one JSON line with every ported kernel, each with its bound on
+            the CUDA cores (bound_ms) and on the tensor cores (tc_bound_ms)
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 run from a directory without the package beside it, it exits non-zero and
@@ -67,8 +72,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data-sheet peaks (dense, 700 W)
+# NVIDIA H100 SXM data-sheet peaks (dense, 700 W): f32 on the CUDA cores,
+# and on the tensor cores (tc): f32 as 3xTF32 (495 / 3 TFLOP/s), bf16 989
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_TC_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
 LAUNCHES_PER_FORWARD = 44
 REQUESTS, BATCH = 4, 8  # the main path: 4 requests of batch 8
@@ -148,7 +155,16 @@ def device_profile(torch, fn, top: int = 8):
     return wall_ms, busy_us / 1e3, [(name, us / 1e3, n) for name, (us, n) in ranked]
 
 
-def conv_bound_ms(b, h, w, cin, cout, dtype):
+def _bound(flops, nbytes, dtype, tc):
+    """(ms, "operations" or "bytes"): the larger of flops over the card's
+    peak for the type (on the tensor cores if tc) and bytes over the memory
+    rate."""
+    t_ops = flops / (PEAK_TC_FLOPS if tc else PEAK_FLOPS)[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def conv_bound_ms(b, h, w, cin, cout, dtype, tc=False):
     """Least time for one sphere conv: the larger of its operations over the
     card's peak for the type and its bytes (each input read once, the output
     written once) over the memory rate."""
@@ -156,12 +172,10 @@ def conv_bound_ms(b, h, w, cin, cout, dtype):
     flops = 2 * b * h * w * 9 * cin * cout + 8 * b * h * w * 9 * cin
     nbytes = (b * h * w * cin * size + 9 * cin * cout * size + cout * 4
               + h * 36 * 16 + b * h * w * cout * 4)
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(flops, nbytes, dtype, tc)
 
 
-def kernel_bound_ms(kind, b, h, w, cin, cout, stride, dtype, fanin=64):
+def kernel_bound_ms(kind, b, h, w, cin, cout, stride, dtype, fanin=64, tc=False):
     """Least time for one launch of a training kernel at input x (b, h, w,
     cin) and output channels cout: the larger of its operations (for fwd, dx
     and dK alike 2*B*Ho*Wo*9*Cin*Cout + 8*B*Ho*Wo*9*Cin) over the card's peak
@@ -177,12 +191,10 @@ def kernel_bound_ms(kind, b, h, w, cin, cout, stride, dtype, fanin=64):
         "dx": g_b + k_b + h * fanin * 20 + b * h * w * cin * 4,
         "dk": x_b + g_b + fwd_tables + 9 * cin * cout * 4,
     }[kind]
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(flops, nbytes, dtype, tc)
 
 
-def dense_bound_ms(kind, b, h, w, cin, cout, dtype="float32"):
+def dense_bound_ms(kind, b, h, w, cin, cout, dtype="float32", tc=False):
     """Least time for one launch of a dense-layer conv kernel at x (b, h, w,
     cin) -> cout: the larger of its operations (2*B*H*W*9*Cin*Cout for the
     conv, plus the affine or the post-scale and dA products on B*H*W*Cin)
@@ -196,9 +208,19 @@ def dense_bound_ms(kind, b, h, w, cin, cout, dtype="float32"):
     nbytes = {"fwd": x_b + k_b + 2 * vec + px * cout * 4,
               "dx": g_b + x_b + k_b + vec + px * cin * 4 + 2 * vec,
               "dk": x_b + g_b + 2 * vec + 9 * cin * cout * 4}[kind]
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound(flops, nbytes, dtype, tc)
+
+
+def dense_conv_yardstick(torch, x, cout):
+    """cuDNN's dense 3x3 conv (SAME, channels_last, TF32 off as main sets it)
+    at the sphere conv's (B, H, W, Cin, Cout): a yardstick of what a library
+    conv of that size costs, not the same function."""
+    import torch.nn.functional as F
+
+    x_cl = x.permute(0, 3, 1, 2)  # NHWC in memory: channels_last
+    w_cl = torch.randn(cout, x.shape[3], 3, 3, device=x.device).contiguous(
+        memory_format=torch.channels_last)
+    return lambda: F.conv2d(x_cl, w_cl, padding=1)
 
 
 def grad_ratios(port: dict, ref: dict) -> list:
@@ -395,7 +417,12 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
                "per_d_step": per_step[(name, kind, shape)]["D"],
                "ms": cuda_ms(torch, kern, warmup=1, iters=5),
                "plain_ms": cuda_ms(torch, plain, warmup=1, iters=5),
-               "bound_ms": bound, "bound_by": bound_by}
+               "bound_ms": bound, "bound_by": bound_by,
+               "tc_bound_ms": kernel_bound_ms(kind, b, h, w, cin, cout, stride, "float32",
+                                              fanin, tc=True)[0]}
+        if name == "sphere_conv_s1":
+            row["dense_conv_yardstick_ms"] = cuda_ms(
+                torch, dense_conv_yardstick(torch, inputs[0], cout), warmup=1, iters=5)
         if kind == "dx" and stride == 1:
             # B3 and B6 on the same inputs: where the routing gate should lie
             x_, k_, _, g_ = inputs
@@ -413,7 +440,10 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
         rows.append(row)
         log(f"[ttiming] {name} {kind} B{b} {h}x{w} {cin}->{cout} s{stride} "
             f"x{row['per_g_step']}/G x{row['per_d_step']}/D: kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by})"
+            f"plain {row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}), tc bound "
+            f"{row['tc_bound_ms']:.4f} ms"
+            + (f", cuDNN dense conv yardstick {row['dense_conv_yardstick_ms']:.4f} ms"
+               if "dense_conv_yardstick_ms" in row else "")
             + "".join(f", {k[:-3]} {v:.4f} ms" for k, v in row.items()
                       if k.startswith("sphere_conv_dx_s1")))
         del inputs, kern, plain
@@ -430,14 +460,18 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
     for n in names:
         sel = [r for r in rows if r["kernel"] == n]
         per = {key: sum(r[key] * (r["per_g_step"] + r["per_d_step"]) for r in sel)
-               for key in ("ms", "plain_ms", "bound_ms")}
+               for key in ("ms", "plain_ms", "bound_ms", "tc_bound_ms")
+               + (("dense_conv_yardstick_ms",) if n == "sphere_conv_s1" else ())}
         ops = sum(r["bound_ms"] * (r["per_g_step"] + r["per_d_step"]) for r in sel
                   if r["bound_by"] == "operations")
         per["bound_by"] = "operations" if ops >= per["bound_ms"] / 2 else "bytes"
         per_kernel[n] = per
     log(f"[ttiming] batch {BATCH}: generator_step {step_ms['G']:.3f} ms, discriminator_step "
         f"{step_ms['D']:.3f} ms; per G+D step: " + "; ".join(
-            f"{n} kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.3f}"
+            f"{n} kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.3f}, "
+            f"tc bound {v['tc_bound_ms']:.3f}"
+            + (f", cuDNN dense conv yardstick {v['dense_conv_yardstick_ms']:.3f}"
+               if "dense_conv_yardstick_ms" in v else "")
             for n, v in per_kernel.items()))
     by_map: dict = {}
     for r in rows:
@@ -490,9 +524,10 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
             "launches": totals[n], "max_abs_err": worst[n]["float32"],
             "max_err_f32": worst[n]["float32"], "max_err_bf16_rel": worst[n]["bf16_rel"],
             "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
-            "bound_by": v["bound_by"], "library_ms": None,
+            "tc_bound_ms": v["tc_bound_ms"], "bound_by": v["bound_by"], "library_ms": None,
         })
-    return {"entries": entries, "b1_train_launches": totals["sphere_conv_s1"]}
+    return {"entries": entries, "b1_train_launches": totals["sphere_conv_s1"],
+            "b1_train": per_kernel["sphere_conv_s1"]}
 
 
 
@@ -721,24 +756,27 @@ def run_regression(torch, np, dev, seed: int, tables: dict, save) -> list:
                    "ms": cuda_ms(torch, kern, warmup=1, iters=5),
                    "plain_ms": cuda_ms(torch, plain, warmup=1, iters=5),
                    "library_ms": cuda_ms(torch, library[name], warmup=1, iters=5),
-                   "bound_ms": bound, "bound_by": bound_by}
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "tc_bound_ms": dense_bound_ms(kind, REG_BATCH, h, w, cin, cout, tc=True)[0]}
             rows.append(row)
             log(f"[rtiming] {name} B{REG_BATCH} {h}x{w} {cin}->{cout} x{n_step}/step: kernel "
                 f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, cuDNN "
-                f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+                f"{row['library_ms']:.4f} ms ({row['ms'] / row['library_ms']:.3f}x), bound "
+                f"{bound:.4f} ms ({bound_by}), tc bound {row['tc_bound_ms']:.4f} ms")
         del x, a, b_, k, g, y_cl, g_cl, w_cl
     per_kernel = {}
     for n in names:
         sel = [r for r in rows if r["kernel"] == n]
         per = {key: sum(r[key] * r["per_step"] for r in sel)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms", "tc_bound_ms")}
         ops = sum(r["bound_ms"] * r["per_step"] for r in sel if r["bound_by"] == "operations")
         per["bound_by"] = "operations" if ops >= per["bound_ms"] / 2 else "bytes"
         per_kernel[n] = per
     step_ms = cuda_ms(torch, lambda: TR.train_step(state, batches[0]), warmup=1, iters=5)
     log(f"[rtiming] batch {REG_BATCH}: train_step {step_ms:.3f} ms; per step: " + "; ".join(
         f"{n} kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f}, cuDNN {v['library_ms']:.3f}, "
-        f"bound {v['bound_ms']:.3f}" for n, v in per_kernel.items()))
+        f"bound {v['bound_ms']:.3f}, tc bound {v['tc_bound_ms']:.3f}"
+        for n, v in per_kernel.items()))
     tables["regression_shapes"] = rows
     tables["regression_step_ms"] = step_ms
     tables["regression_per_kernel"] = per_kernel
@@ -764,7 +802,8 @@ def run_regression(torch, np, dev, seed: int, tables: dict, save) -> list:
             "launches": totals[n], "max_abs_err": worst[n]["float32"],
             "max_err_f32": worst[n]["float32"], "max_err_bf16_rel": worst[n]["bf16_rel"],
             "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
-            "bound_by": v["bound_by"], "library_ms": v["library_ms"],
+            "tc_bound_ms": v["tc_bound_ms"], "bound_by": v["bound_by"],
+            "library_ms": v["library_ms"],
         })
     return entries
 
@@ -993,18 +1032,23 @@ def main(argv=None) -> int:
             "plain_ms": cuda_ms(torch, lambda: sphere_conv_plain(x, k, bias)),
             "ms": cuda_ms(torch, lambda: sphere_conv_s1(x, k, bias)),
             "bf16_ms": cuda_ms(torch, lambda: sphere_conv_s1(xb, kb, bias)),
+            "dense_conv_yardstick_ms": cuda_ms(torch, dense_conv_yardstick(torch, x, cout)),
         }
         row["bound_ms"], row["bound_by"] = conv_bound_ms(b, h, w, cin, cout, "float32")
-        row["bf16_bound_ms"], _ = conv_bound_ms(b, h, w, cin, cout, "bfloat16")
+        row["tc_bound_ms"], _ = conv_bound_ms(b, h, w, cin, cout, "float32", tc=True)
+        row["bf16_bound_ms"], _ = conv_bound_ms(b, h, w, cin, cout, "bfloat16", tc=True)
         rows.append(row)
         log(f"[timing] sphere_conv_s1 B{b} {h}x{w} {cin}->{cout} x{row['per_forward']}: "
             f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), bf16 kernel "
-            f"{row['bf16_ms']:.4f} ms (bound {row['bf16_bound_ms']:.4f})")
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), tc bound "
+            f"{row['tc_bound_ms']:.4f} ms, bf16 kernel {row['bf16_ms']:.4f} ms (tc bound "
+            f"{row['bf16_bound_ms']:.4f}), cuDNN dense conv yardstick "
+            f"{row['dense_conv_yardstick_ms']:.4f} ms")
     del x, k, xb, kb
     report_check(f"at batches 2 and {b}")
     total = {key: sum(r[key] * r["per_forward"] for r in rows)
-             for key in ("ms", "plain_ms", "bound_ms", "bf16_ms", "bf16_bound_ms")}
+             for key in ("ms", "plain_ms", "bound_ms", "tc_bound_ms", "bf16_ms", "bf16_bound_ms",
+                         "dense_conv_yardstick_ms")}
     ops_ms = sum(r["bound_ms"] * r["per_forward"] for r in rows if r["bound_by"] == "operations")
     total_bound_by = "operations" if ops_ms >= total["bound_ms"] / 2 else "bytes"
 
@@ -1018,7 +1062,9 @@ def main(argv=None) -> int:
     log(f"[timing] batch {b}: regressor {reg_ms:.3f} ms, generator {gen_ms:.3f} ms, "
         f"pipeline_inference {pipe_ms:.3f} ms; the generator's 44 sphere convs: kernel "
         f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, bound "
-        f"{total['bound_ms']:.3f} ms ({total_bound_by})")
+        f"{total['bound_ms']:.3f} ms ({total_bound_by}), tc bound {total['tc_bound_ms']:.3f} ms, "
+        f"bf16 kernel {total['bf16_ms']:.3f} ms (tc bound {total['bf16_bound_ms']:.3f}), cuDNN "
+        f"dense conv yardstick {total['dense_conv_yardstick_ms']:.3f} ms")
 
     # where the time of one request goes, by the profiler's device trace
     prof = device_profile(torch, lambda: request(crop_reg, crop_proj))
@@ -1060,8 +1106,13 @@ def main(argv=None) -> int:
         "ms": total["ms"],
         "plain_ms": total["plain_ms"],
         "bound_ms": total["bound_ms"],
+        "tc_bound_ms": total["tc_bound_ms"],
         "bound_by": total_bound_by,
         "library_ms": None,
+        "dense_conv_yardstick_ms": total["dense_conv_yardstick_ms"],
+        "train_ms": train["b1_train"]["ms"],
+        "train_tc_bound_ms": train["b1_train"]["tc_bound_ms"],
+        "train_dense_conv_yardstick_ms": train["b1_train"]["dense_conv_yardstick_ms"],
     }] + train["entries"] + reg_entries}
     log(smi)
     log(json.dumps(kernels_line))

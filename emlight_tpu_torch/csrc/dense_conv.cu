@@ -16,25 +16,41 @@
 //
 // with t = 3 * ky + kx and off_t = (ky - 1, kx - 1). dA uses the ORIGINAL x.
 //
-// What bounds them on an H100: operations. At the model's widths (Cin 48,
-// Cout 12) each does 2*9*Cin*Cout = 10368 flops per pixel on 240 bytes
-// (f32) of input and output, 43 flops a byte, above the f32 CUDA cores'
-// ridge of 20. The TPU kernel put the 9 taps on one MXU matmul against a
-// 128-lane padded operand; none of that carries over (no lane padding, no
-// T matrix, no halo DMA). Here, simple and exact first:
+// What bounds them on an H100. B7 and B8 on the f32 CUDA cores: operations.
+// At the model's widths (Cin 48, Cout 12) each does 2*9*Cin*Cout = 10368
+// flops per pixel on 240 bytes (f32) of input and output, 43 flops a byte,
+// above the f32 CUDA cores' ridge of 20. B7' on the tensor cores: bytes (it
+// reads g and x and writes dx, 432 bytes a pixel in f32; 3xTF32 lifts the
+// operations' ceiling to 495/3 TFLOP/s). The TPU kernel put the 9 taps on one
+// MXU matmul against a 128-lane padded operand; none of that carries over
+// (no lane padding, no T matrix, no halo DMA).
 //
-// conv_kernel<T, DX> (B7 with DX = false, B7' with DX = true): one block of
-//   64 threads per tile of 8 x 32 output pixels and 12 output channels.
-//   For each slab of 16 input channels it stages the (8+2) x (32+2) window
-//   in shared memory, the affine applied on load (B7) and 0 written outside
-//   the image, beside the slab's 9 x 16 x 12 kernel values (B7' reads K
-//   tap-reversed and transposed on the way in). Each thread accumulates 4
-//   pixels (columns tx, tx+8, tx+16, tx+24 of one row: neighbouring threads
-//   read neighbouring words) x 12 channels in registers. Cin 48 and Cout 12
-//   run unpadded; ragged widths and edges are masked. In B7' each block also
-//   writes its own partial dA and dB per channel, summed over its pixels in
-//   a fixed order; reduce_kernel then sums the blocks' partials in a fixed
-//   order. No atomics: dA and dB are the same from run to run.
+// conv_kernel<T> (B7): one block of 64 threads per tile of 8 x 32 output
+//   pixels and 12 output channels. For each slab of 16 input channels it
+//   stages the (8+2) x (32+2) window in shared memory, the affine applied on
+//   load and 0 written outside the image, beside the slab's 9 x 16 x 12
+//   kernel values. Each thread accumulates 4 pixels (columns tx, tx+8,
+//   tx+16, tx+24 of one row: neighbouring threads read neighbouring words) x
+//   12 channels in registers. Cin 48 and Cout 12 run unpadded; ragged widths
+//   and edges are masked.
+// dx_kernel<T> (B7'): an implicit GEMM on mma.sync, M = the 256 pixels of an
+//   8 x 32 tile, N = the forward's Cin (all 48 in one block: g is staged once
+//   per tile, with no zero slots), K = 9 taps x the forward's Cout (108).
+//   f32 multiplies in 3xTF32 (v = hi + lo, each rounded to TF32; the sum
+//   takes hi*hi + hi*lo + lo*hi in f32, about 2^-21 relative per product);
+//   bf16 multiplies bf16 x bf16 exactly (m16n8k16), f32 accumulation. The
+//   kernel is tap-reversed, transposed (and for f32 split) into shared
+//   memory once per block; A fragments are read straight from the staged g
+//   window per tap (the im2col is addressing only). Persistent blocks walk
+//   the tiles with a two-stage cp.async ring: the next tile's g window and x
+//   tile load while the current one computes. The epilogue works in the
+//   fragment layout: dx = acc * a is written over the staged x tile (f32; a
+//   separate f32 tile for bf16) and leaves in 16-byte stores of whole pixel
+//   rows; each thread sums dB and dA over its pixels, a butterfly over the
+//   warp's lanes and a warp-order sum give the tile's, added to the block's
+//   running partial in tile order; reduce_kernel sums the blocks' partials
+//   in block order. No atomics: dA and dB are the same from run to run.
+//   wgmma adds nothing at N = 48 and K = 108 once the kernel is bytes-bound.
 // dk_partial_kernel<T> (B8): one block of 144 threads (9 taps x 16 input
 //   channels, 12 output channels each) per (pixel chunk, 16-channel input
 //   tile, 12-channel output tile). For each 8 x 32 pixel tile of its chunk
@@ -47,6 +63,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -83,16 +100,12 @@ struct Num<__nv_bfloat16> {
   }
 };
 
-// B7 (DX = false): in = x (B,H,W,Cin), kmat (9,Cin,Cout), out (B,H,W,Cout).
-// B7' (DX = true): in = g (B,H,W,Cin) with Cin the forward's Cout, kmat the
-// forward's (9,Cout,Cin), out = dx (B,H,W,Cout) with Cout the forward's Cin;
-// partial (2, n_pix_blocks, Cout) receives each block's dB (row 0) and dA
-// (row 1) over its pixels.
-template <typename T, bool DX>
+// B7: in = x (B,H,W,Cin), kmat (9,Cin,Cout), out (B,H,W,Cout).
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 conv_kernel(const T* __restrict__ in, const T* __restrict__ kmat, const float* __restrict__ a,
-            const float* __restrict__ bvec, const T* __restrict__ xorig, float* __restrict__ out,
-            float* __restrict__ partial, int H, int W, int Cin, int Cout) {
+            const float* __restrict__ bvec, float* __restrict__ out, int H, int W, int Cin,
+            int Cout) {
   __shared__ float y_s[CK * CP];
   __shared__ __align__(16) float k_s[9 * CK * CO];
 
@@ -126,7 +139,7 @@ conv_kernel(const T* __restrict__ in, const T* __restrict__ kmat, const float* _
       float v = 0.f;
       if (c < kc && gr >= 0 && gr < H && gc >= 0 && gc < W) {
         v = Num<T>::load(inb[((size_t)gr * W + gc) * Cin + k0 + c]);
-        if (!DX) v = Num<T>::round(fmaf(v, a[k0 + c], bvec[k0 + c]));
+        v = Num<T>::round(fmaf(v, a[k0 + c], bvec[k0 + c]));
       }
       y_s[c * CP + wr * WP + wc] = v;
     }
@@ -136,12 +149,7 @@ conv_kernel(const T* __restrict__ in, const T* __restrict__ kmat, const float* _
       const int t = e / (CO * CK);
       const int oo = og * CO + o;
       float v = 0.f;
-      if (c < kc && oo < Cout) {
-        // B7': K tap-reversed and transposed, K'[t][c][o] = K[8 - t][o][c]
-        const size_t idx = DX ? ((size_t)(8 - t) * Cout + oo) * Cin + k0 + c
-                              : ((size_t)t * Cin + k0 + c) * Cout + oo;
-        v = Num<T>::load(kmat[idx]);
-      }
+      if (c < kc && oo < Cout) v = Num<T>::load(kmat[((size_t)t * Cin + k0 + c) * Cout + oo]);
       k_s[e] = v;
     }
     __syncthreads();
@@ -173,9 +181,6 @@ conv_kernel(const T* __restrict__ in, const T* __restrict__ kmat, const float* _
   }
 
   const int r = r0 + ty;
-  float db[CO], da[CO];
-#pragma unroll
-  for (int o = 0; o < CO; ++o) db[o] = da[o] = 0.f;
 #pragma unroll
   for (int i = 0; i < PX; ++i) {
     const int col = c0 + tx + NTX * i;
@@ -184,36 +189,7 @@ conv_kernel(const T* __restrict__ in, const T* __restrict__ kmat, const float* _
 #pragma unroll
     for (int o = 0; o < CO; ++o) {
       const int oo = og * CO + o;
-      if (oo >= Cout) continue;
-      if (DX) {
-        db[o] += acc[i][o];
-        da[o] = fmaf(acc[i][o], Num<T>::load(xorig[pix * Cout + oo]), da[o]);
-        out[pix * Cout + oo] = acc[i][o] * a[oo];  // a multiplies AFTER the sum
-      } else {
-        out[pix * Cout + oo] = acc[i][o];
-      }
-    }
-  }
-  if (DX) {
-    // the block's dB and dA: per thread over its pixels above, then over the
-    // threads in thread order
-    __syncthreads();
-    float* red = y_s;  // NTHREADS x 2*CO floats, fits in the window's space
-#pragma unroll
-    for (int o = 0; o < CO; ++o) {
-      red[tid * 2 * CO + o] = db[o];
-      red[tid * 2 * CO + CO + o] = da[o];
-    }
-    __syncthreads();
-    if (tid < 2 * CO) {
-      const int kind = tid / CO;
-      const int o = tid - kind * CO;
-      const int oo = og * CO + o;
-      float s = 0.f;
-      for (int k = 0; k < NTHREADS; ++k) s += red[k * 2 * CO + tid];
-      const int n_pix_blocks = gridDim.x * gridDim.y * (gridDim.z / n_og);
-      const int pb = (b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-      if (oo < Cout) partial[((size_t)kind * n_pix_blocks + pb) * Cout + oo] = s;
+      if (oo < Cout) out[pix * Cout + oo] = acc[i][o];
     }
   }
 }
@@ -235,6 +211,535 @@ reduce_kernel(const float* __restrict__ part, float* __restrict__ db, float* __r
     __syncthreads();
   }
   if (threadIdx.x == 0) (kind == 0 ? db : da)[c] = s[0];
+}
+
+// ---------------------------------------------------------------------------
+// B7' on the tensor cores: dy2 = sum_t g[q + off_t] K'_t as an implicit GEMM,
+// M = pixels of an 8x32 tile, N = the forward's Cin (48 per pass), K = 9 taps
+// x the forward's Cout (16 g channels per slab).
+// ---------------------------------------------------------------------------
+
+constexpr int DX_THREADS = 256;               // 8 warps; warp w computes tile row w
+constexpr int DX_NC = 48;                     // output channels per pass: 6 n8 fragments
+constexpr int DX_NF = DX_NC / 8;
+constexpr int DX_GS = 16;                     // g channels per staged slab
+constexpr int DX_WC = TW + 2;                 // window columns
+constexpr int DX_WPIX = (TH + 2) * DX_WC;     // 340 window pixels
+constexpr int DX_XP = DX_NC + 8;              // pitch of a pixel's x / dx row: float2
+                                              // accesses of a half warp on disjoint banks
+static_assert(TH * 32 == DX_THREADS, "one warp per tile row");
+static_assert(TW == 32, "a warp's two m16 fragments cover one tile row");
+
+__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// Dynamic shared memory of dx_kernel<T>, from the g channel count G and
+// sizeof(T); byte offsets, every region 16-byte aligned.
+struct DxLayout {
+  int gp;        // channels per tap of the first slab (K pitch and window pitch)
+  int kpad;      // 9 * gp rounded up to the mma depth (8 tf32, 16 bf16)
+  int kp;        // row pitch of the transposed kernel (bank-conflict-free B loads)
+  int kt_hi, kt_lo, koff, win, xt, dxs, red;
+  int win_stage, xt_stage, bytes;
+};
+
+__host__ __device__ inline DxLayout dx_layout(int G, int esize) {
+  DxLayout L;
+  const bool f32 = esize == 4;
+  const int gs = G < DX_GS ? G : DX_GS;
+  L.gp = f32 ? gs : round_up(gs, 2);
+  L.kpad = round_up(9 * L.gp, f32 ? 8 : 16);
+  L.kp = L.kpad + (f32 ? 4 : 8);
+  int o = 0;
+  L.kt_hi = o;
+  o += round_up(DX_NC * L.kp * esize, 16);
+  L.kt_lo = o;
+  if (f32) o += round_up(DX_NC * L.kp * 4, 16);
+  L.koff = o;
+  o += round_up(L.kpad * 4, 16);
+  L.win_stage = round_up(DX_WPIX * L.gp * esize, 16);
+  L.win = o;
+  o += 2 * L.win_stage;
+  L.xt_stage = round_up(TH * TW * DX_XP * esize, 16);
+  L.xt = o;
+  o += 2 * L.xt_stage;
+  L.dxs = o;  // f32: dx is written in place over the x tile
+  if (!f32) o += TH * TW * DX_XP * 4;
+  L.red = o;
+  o += 8 * 2 * DX_NC * 4;
+  L.bytes = o;
+  return L;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of `bytes` (16, 8 or 4) from global src to shared dst; 0 bytes
+// are read, and zeros written, when !ok
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes, bool ok) {
+  const uint32_t d = smem_u32(dst);
+  const int n = ok ? bytes : 0;
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// the widest copy (16, 8 or 4 bytes) that divides every offset and length of
+// a pixel-row copy, given their OR; 0: element by element (2-byte runs)
+__device__ __forceinline__ int copy_bytes(unsigned m) {
+  return (m & 15) == 0 ? 16 : (m & 7) == 0 ? 8 : (m & 3) == 0 ? 4 : 0;
+}
+
+__device__ __forceinline__ unsigned low_bits(const void* p) {
+  return (unsigned)(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// 3xTF32: v ~ hi + lo, each rounded to TF32 (10 mantissa bits, to nearest,
+// ties away: cvt.rna); hi + lo keeps about 22 of v's 24 bits
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  return T(0.f);
+}
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+// one unit of a block's work: (tile, 48-channel output pass, g slab)
+struct DxUnit {
+  int b, r0, c0;   // image and tile origin
+  int n0, nc;      // output channels [n0, n0 + nc)
+  int cs0, gs, gp; // g channels [cs0, cs0 + gs), per-tap pitch gp
+  bool first, last;  // first / last slab of the pass
+  bool first_tile;   // the block's first tile
+};
+
+__device__ __forceinline__ DxUnit dx_unit(int u, int per_tile, int n_slab, int ntx, int nty,
+                                          int N, int G, bool f32) {
+  DxUnit d;
+  const int j = u / per_tile;
+  const int tile = blockIdx.x + j * gridDim.x;
+  const int rem = u - j * per_tile;
+  const int pass = rem / n_slab;
+  const int slab = rem - pass * n_slab;
+  d.b = tile / (nty * ntx);
+  const int t2 = tile - d.b * nty * ntx;
+  d.r0 = (t2 / ntx) * TH;
+  d.c0 = (t2 % ntx) * TW;
+  d.n0 = pass * DX_NC;
+  d.nc = min(DX_NC, N - d.n0);
+  d.cs0 = slab * DX_GS;
+  d.gs = min(DX_GS, G - d.cs0);
+  d.gp = f32 ? d.gs : round_up(d.gs, 2);
+  d.first = slab == 0;
+  d.last = slab == n_slab - 1;
+  d.first_tile = j == 0;
+  return d;
+}
+
+// the (TH+2) x (TW+2) window of g's slab, 0 outside the image, pixel pitch gp
+template <typename T>
+__device__ void dx_stage_window(T* win, const T* __restrict__ g, const DxUnit& d, int H, int W,
+                                int G) {
+  constexpr int E = sizeof(T);
+  const int cb = d.gp == d.gs ? copy_bytes((d.gs * E) | (G * E) | (d.cs0 * E) | low_bits(g)) : 0;
+  if (cb) {
+    const int cpp = d.gs * E / cb;
+    for (int e = threadIdx.x; e < DX_WPIX * cpp; e += DX_THREADS) {
+      const int wp = e / cpp;
+      const int part = e - wp * cpp;
+      const int wr = wp / DX_WC;
+      const int r = d.r0 - 1 + wr;
+      const int c = d.c0 - 1 + wp - wr * DX_WC;
+      const bool ok = r >= 0 && r < H && c >= 0 && c < W;
+      const char* src = reinterpret_cast<const char*>(g);
+      if (ok) src += ((((size_t)d.b * H + r) * W + c) * G + d.cs0) * E + part * cb;
+      cp_async(reinterpret_cast<char*>(win) + ((size_t)wp * d.gp) * E + part * cb, src, cb, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < DX_WPIX * d.gp; e += DX_THREADS) {
+      const int wp = e / d.gp;
+      const int ch = e - wp * d.gp;
+      const int wr = wp / DX_WC;
+      const int r = d.r0 - 1 + wr;
+      const int c = d.c0 - 1 + wp - wr * DX_WC;
+      T v = zero_of<T>();
+      if (ch < d.gs && r >= 0 && r < H && c >= 0 && c < W)
+        v = g[(((size_t)d.b * H + r) * W + c) * G + d.cs0 + ch];
+      win[e] = v;
+    }
+  }
+}
+
+// x's channels [n0, n0 + nc) at the tile's pixels, 0 outside the image
+template <typename T>
+__device__ void dx_stage_xtile(T* xt, const T* __restrict__ x, const DxUnit& d, int H, int W,
+                               int N) {
+  constexpr int E = sizeof(T);
+  const int cb = copy_bytes((d.nc * E) | (N * E) | (d.n0 * E) | low_bits(x));
+  if (cb) {
+    const int cpp = d.nc * E / cb;
+    for (int e = threadIdx.x; e < TH * TW * cpp; e += DX_THREADS) {
+      const int tp = e / cpp;
+      const int part = e - tp * cpp;
+      const int r = d.r0 + tp / TW;
+      const int c = d.c0 + tp % TW;
+      const bool ok = r < H && c < W;
+      const char* src = reinterpret_cast<const char*>(x);
+      if (ok) src += ((((size_t)d.b * H + r) * W + c) * N + d.n0) * E + part * cb;
+      cp_async(reinterpret_cast<char*>(xt) + ((size_t)tp * DX_XP) * E + part * cb, src, cb, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < TH * TW * d.nc; e += DX_THREADS) {
+      const int tp = e / d.nc;
+      const int ch = e - tp * d.nc;
+      const int r = d.r0 + tp / TW;
+      const int c = d.c0 + tp % TW;
+      xt[tp * DX_XP + ch] =
+          (r < H && c < W) ? x[(((size_t)d.b * H + r) * W + c) * N + d.n0 + ch] : zero_of<T>();
+    }
+  }
+}
+
+// K'[k = t * gp + c][n] = K[8 - t][n0 + n][cs0 + c], stored transposed
+// (row n, k contiguous), 0 past nc, gs and 9 * gp; f32 as its TF32 hi and lo
+// parts. koff[k]: the window offset of K row k from a pixel's tap-(0, 0) slot.
+template <typename T>
+__device__ void dx_stage_kernel(unsigned char* smem, const DxLayout& L,
+                                const T* __restrict__ kmat, const DxUnit& d, int N, int G) {
+  const int kk_n = 9 * d.gp;
+  for (int e = threadIdx.x; e < DX_NC * L.kpad; e += DX_THREADS) {
+    const int n = e / L.kpad;
+    const int k = e - n * L.kpad;
+    T v = zero_of<T>();
+    if (n < d.nc && k < kk_n) {
+      const int t = k / d.gp;
+      const int c = k - t * d.gp;
+      if (c < d.gs) v = kmat[((size_t)(8 - t) * N + d.n0 + n) * G + d.cs0 + c];
+    }
+    if constexpr (sizeof(T) == 4) {
+      uint32_t hi, lo;
+      split_tf32(v, hi, lo);
+      reinterpret_cast<uint32_t*>(smem + L.kt_hi)[n * L.kp + k] = hi;
+      reinterpret_cast<uint32_t*>(smem + L.kt_lo)[n * L.kp + k] = lo;
+    } else {
+      reinterpret_cast<T*>(smem + L.kt_hi)[n * L.kp + k] = v;
+    }
+  }
+  int* koff = reinterpret_cast<int*>(smem + L.koff);
+  for (int k = threadIdx.x; k < L.kpad; k += DX_THREADS) {
+    int off = 0;
+    if (k < kk_n) {
+      const int t = k / d.gp;
+      off = ((t / 3) * DX_WC + t % 3) * d.gp + k - t * d.gp;
+    }
+    koff[k] = off;
+  }
+}
+
+// acc[mf][nf] += A (tile row `warp`, pixels 16 mf + {g, g + 8}) x K'
+template <typename T>
+__device__ __forceinline__ void dx_mma(float (&acc)[2][DX_NF][4], const T* win,
+                                       const unsigned char* smem, const DxLayout& L,
+                                       const DxUnit& d, int warp, int gq, int t4) {
+  const int* koff = reinterpret_cast<const int*>(smem + L.koff);
+  const int kk_n = 9 * d.gp;
+  const int base = (warp * DX_WC + gq) * d.gp;
+  if constexpr (sizeof(T) == 4) {
+    const uint32_t* kth = reinterpret_cast<const uint32_t*>(smem + L.kt_hi);
+    const uint32_t* ktl = reinterpret_cast<const uint32_t*>(smem + L.kt_lo);
+    const int steps = (kk_n + 7) / 8;
+#pragma unroll 2
+    for (int kk = 0; kk < steps; ++kk) {
+      const int k0 = kk * 8 + t4;
+      const int k1 = k0 + 4;
+      const bool v0 = k0 < kk_n;
+      const bool v1 = k1 < kk_n;
+      const int o0 = koff[k0];
+      const int o1 = koff[k1];
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) {
+        const float* p = win + base + mf * 16 * d.gp;
+        split_tf32(v0 ? p[o0] : 0.f, ah[mf][0], al[mf][0]);
+        split_tf32(v0 ? p[8 * d.gp + o0] : 0.f, ah[mf][1], al[mf][1]);
+        split_tf32(v1 ? p[o1] : 0.f, ah[mf][2], al[mf][2]);
+        split_tf32(v1 ? p[8 * d.gp + o1] : 0.f, ah[mf][3], al[mf][3]);
+      }
+#pragma unroll
+      for (int nf = 0; nf < DX_NF; ++nf) {
+        const int row = (nf * 8 + gq) * L.kp;
+        const uint32_t bh[2] = {kth[row + k0], kth[row + k1]};
+        const uint32_t bl[2] = {ktl[row + k0], ktl[row + k1]};
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf) {
+          mma_tf32(acc[mf][nf], al[mf], bh);
+          mma_tf32(acc[mf][nf], ah[mf], bl);
+          mma_tf32(acc[mf][nf], ah[mf], bh);
+        }
+      }
+    }
+  } else {
+    const T* kt = reinterpret_cast<const T*>(smem + L.kt_hi);
+    const int steps = (kk_n + 15) / 16;
+#pragma unroll 2
+    for (int kk = 0; kk < steps; ++kk) {
+      const int k0 = kk * 16 + 2 * t4;
+      const int k1 = k0 + 8;
+      const bool v0 = k0 < kk_n;
+      const bool v1 = k1 < kk_n;
+      const int o0 = koff[k0];
+      const int o1 = koff[k1];
+      uint32_t av[2][4];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) {
+        const T* p = win + base + mf * 16 * d.gp;
+        av[mf][0] = v0 ? ld_u32(p + o0) : 0u;
+        av[mf][1] = v0 ? ld_u32(p + 8 * d.gp + o0) : 0u;
+        av[mf][2] = v1 ? ld_u32(p + o1) : 0u;
+        av[mf][3] = v1 ? ld_u32(p + 8 * d.gp + o1) : 0u;
+      }
+#pragma unroll
+      for (int nf = 0; nf < DX_NF; ++nf) {
+        const int row = (nf * 8 + gq) * L.kp;
+        const uint32_t bv[2] = {ld_u32(kt + row + k0), ld_u32(kt + row + k1)};
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf) mma_bf16(acc[mf][nf], av[mf], bv);
+      }
+    }
+  }
+}
+
+// B7': dx (B,H,W,N) f32 = dy2 * a with dy2 the conv of g (B,H,W,G) with the
+// tap-reversed, transposed forward kernel kmat (3,3,N,G); partial
+// (2, gridDim.x, N): row 0 each block's dB, row 1 its dA (with the original
+// x), summed over the block's pixels in a fixed order.
+//
+// Persistent: block j walks tiles j, j + gridDim.x, ...; per tile one unit
+// per (48-channel output pass, 16-channel g slab), one unit for the dense
+// layer's 48 <- 12. A ring of two stages: while a unit computes, cp.async
+// brings the next unit's g window and x tile. The kernel (transposed, and
+// for f32 split into TF32 hi and lo) is staged once per block when a tile has
+// one unit, else per unit.
+template <typename T>
+__global__ void __launch_bounds__(DX_THREADS, 1)
+dx_kernel(const T* __restrict__ g, const T* __restrict__ kmat, const float* __restrict__ a,
+          const T* __restrict__ xorig, float* __restrict__ dx, float* __restrict__ partial,
+          int B, int H, int W, int N, int G) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool F32 = sizeof(T) == 4;
+  const DxLayout L = dx_layout(G, sizeof(T));
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gq = lane >> 2;
+  const int t4 = lane & 3;
+  const int ntx = (W + TW - 1) / TW;
+  const int nty = (H + TH - 1) / TH;
+  const int n_tiles = B * nty * ntx;
+  const int n_slab = (G + DX_GS - 1) / DX_GS;
+  const int per_tile = ((N + DX_NC - 1) / DX_NC) * n_slab;
+  const int n_units = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * per_tile;
+  const bool one_kernel = per_tile == 1;
+  float* red = reinterpret_cast<float*>(smem + L.red);
+
+  auto prefetch = [&](int u) {
+    const DxUnit d = dx_unit(u, per_tile, n_slab, ntx, nty, N, G, F32);
+    T* win = reinterpret_cast<T*>(smem + L.win + (u & 1) * L.win_stage);
+    dx_stage_window(win, g, d, H, W, G);
+    if (d.last) dx_stage_xtile(reinterpret_cast<T*>(smem + L.xt + (u & 1) * L.xt_stage), xorig, d,
+                               H, W, N);
+  };
+
+  if (one_kernel) dx_stage_kernel(smem, L, kmat, dx_unit(0, 1, 1, ntx, nty, N, G, F32), N, G);
+  prefetch(0);
+  cp_async_commit();
+
+  float acc[2][DX_NF][4];
+  for (int u = 0; u < n_units; ++u) {
+    const int s = u & 1;
+    const DxUnit d = dx_unit(u, per_tile, n_slab, ntx, nty, N, G, F32);
+    if (u + 1 < n_units) prefetch(u + 1);
+    cp_async_commit();
+    if (!one_kernel) dx_stage_kernel(smem, L, kmat, d, N, G);
+    cp_async_wait1();
+    __syncthreads();
+    if (d.first) {
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < DX_NF; ++nf)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mf][nf][q] = 0.f;
+    }
+    dx_mma<T>(acc, reinterpret_cast<const T*>(smem + L.win + s * L.win_stage), smem, L, d, warp,
+              gq, t4);
+    if (d.last) {
+      // epilogue in the fragment layout: this thread owns pixels 16 mf + 8 h
+      // + gq of tile row `warp` and channels 8 nf + 2 t4 + {0, 1}
+      const T* xt = reinterpret_cast<const T*>(smem + L.xt + s * L.xt_stage);
+      float* dxs = F32 ? reinterpret_cast<float*>(smem + L.xt + s * L.xt_stage)
+                       : reinterpret_cast<float*>(smem + L.dxs);
+      const int r = d.r0 + warp;
+      float sa[DX_NF][2], sb[DX_NF][2], av[DX_NF][2];
+#pragma unroll
+      for (int nf = 0; nf < DX_NF; ++nf)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = nf * 8 + 2 * t4 + e;
+          av[nf][e] = n < d.nc ? a[d.n0 + n] : 0.f;
+          sa[nf][e] = sb[nf][e] = 0.f;
+        }
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int tx = mf * 16 + h * 8 + gq;
+          const bool ok = r < H && d.c0 + tx < W;
+          const int tp = warp * TW + tx;
+#pragma unroll
+          for (int nf = 0; nf < DX_NF; ++nf) {
+            const int n = nf * 8 + 2 * t4;
+            const float v0 = acc[mf][nf][2 * h];
+            const float v1 = acc[mf][nf][2 * h + 1];
+            if (n + 1 < d.nc) {
+              float x0, x1;
+              if constexpr (F32) {
+                const float2 x2 = *reinterpret_cast<const float2*>(xt + tp * DX_XP + n);
+                x0 = x2.x;
+                x1 = x2.y;
+              } else {
+                const __nv_bfloat162 x2 =
+                    *reinterpret_cast<const __nv_bfloat162*>(xt + tp * DX_XP + n);
+                x0 = __low2float(x2);
+                x1 = __high2float(x2);
+              }
+              if (ok) {
+                sb[nf][0] += v0;
+                sb[nf][1] += v1;
+                sa[nf][0] = fmaf(v0, x0, sa[nf][0]);
+                sa[nf][1] = fmaf(v1, x1, sa[nf][1]);
+              }
+              *reinterpret_cast<float2*>(dxs + tp * DX_XP + n) =
+                  make_float2(v0 * av[nf][0], v1 * av[nf][1]);
+            } else if (n < d.nc) {
+              const float x0 = Num<T>::load(xt[tp * DX_XP + n]);
+              if (ok) {
+                sb[nf][0] += v0;
+                sa[nf][0] = fmaf(v0, x0, sa[nf][0]);
+              }
+              dxs[tp * DX_XP + n] = v0 * av[nf][0];
+            }
+          }
+        }
+      // dB, dA over the warp's pixels: a butterfly over the 8 lanes of one
+      // t4, the same order in every run; lanes gq == 0 keep the sums
+#pragma unroll
+      for (int nf = 0; nf < DX_NF; ++nf)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            sb[nf][e] += __shfl_xor_sync(0xffffffffu, sb[nf][e], off);
+            sa[nf][e] += __shfl_xor_sync(0xffffffffu, sa[nf][e], off);
+          }
+      if (gq == 0) {
+#pragma unroll
+        for (int nf = 0; nf < DX_NF; ++nf)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = nf * 8 + 2 * t4 + e;
+            red[(warp * 2) * DX_NC + n] = sb[nf][e];
+            red[(warp * 2 + 1) * DX_NC + n] = sa[nf][e];
+          }
+      }
+      __syncthreads();
+      // dx in whole pixel rows: neighbouring threads, neighbouring 16 bytes
+      const int cb = copy_bytes((d.nc * 4) | (N * 4) | (d.n0 * 4) | low_bits(dx));
+      if (cb == 16) {
+        const int cpp = d.nc / 4;
+        for (int e = tid; e < TH * TW * cpp; e += DX_THREADS) {
+          const int tp = e / cpp;
+          const int q = e - tp * cpp;
+          const int rr = d.r0 + tp / TW;
+          const int cc = d.c0 + tp % TW;
+          if (rr < H && cc < W)
+            *reinterpret_cast<float4*>(dx + (((size_t)d.b * H + rr) * W + cc) * N + d.n0 + 4 * q) =
+                *reinterpret_cast<const float4*>(dxs + tp * DX_XP + 4 * q);
+        }
+      } else {
+        for (int e = tid; e < TH * TW * d.nc; e += DX_THREADS) {
+          const int tp = e / d.nc;
+          const int ch = e - tp * d.nc;
+          const int rr = d.r0 + tp / TW;
+          const int cc = d.c0 + tp % TW;
+          if (rr < H && cc < W) dx[(((size_t)d.b * H + rr) * W + cc) * N + d.n0 + ch] =
+              dxs[tp * DX_XP + ch];
+        }
+      }
+      // the block's running dB, dA: the warps' sums in warp order, added to
+      // the block's previous tiles in tile order
+      if (tid < 2 * DX_NC) {
+        const int kind = tid / DX_NC;
+        const int n = tid - kind * DX_NC;
+        if (n < d.nc) {
+          float s8 = 0.f;
+          for (int w = 0; w < 8; ++w) s8 += red[(w * 2 + kind) * DX_NC + n];
+          float* dst = partial + ((size_t)kind * gridDim.x + blockIdx.x) * N + d.n0 + n;
+          *dst = d.first_tile ? s8 : *dst + s8;
+        }
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // partial[chunk][t][c][o] = sum over the chunk's tiles of y[p + off_t, c] g[p, o]
@@ -337,26 +842,30 @@ template <typename T>
 int fwd(const void* x, const void* a, const void* b, const void* k, void* out, int B, int H,
         int W, int Cin, int Cout, void* stream) {
   if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1) return (int)cudaErrorInvalidValue;
-  conv_kernel<T, false><<<conv_grid(B, H, W, Cout), NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)k, (const float*)a, (const float*)b, nullptr, (float*)out, nullptr,
-      H, W, Cin, Cout);
+  conv_kernel<T><<<conv_grid(B, H, W, Cout), NTHREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)k, (const float*)a, (const float*)b, (float*)out, H, W, Cin, Cout);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dx(const void* g, const void* x, const void* a, const void* k, void* dxp, void* partial,
-       void* da, void* db, int B, int H, int W, int Cin, int Cout, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1) return (int)cudaErrorInvalidValue;
+       void* da, void* db, int B, int H, int W, int Cin, int Cout, int n_blocks, void* stream) {
+  const long long n_tiles = (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || n_blocks < 1 || n_blocks > n_tiles)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   // the transposed conv: reads g's Cout channels, writes Cin
-  const dim3 grid = conv_grid(B, H, W, Cin);
-  conv_kernel<T, true><<<grid, NTHREADS, 0, st>>>((const T*)g, (const T*)k, (const float*)a,
-                                                  nullptr, (const T*)x, (float*)dxp,
-                                                  (float*)partial, H, W, Cout, Cin);
+  const DxLayout L = dx_layout(Cout, (int)sizeof(T));
+  const cudaError_t e = cudaFuncSetAttribute(
+      dx_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (e != cudaSuccess) return (int)e;
+  dx_kernel<T><<<n_blocks, DX_THREADS, L.bytes, st>>>((const T*)g, (const T*)k, (const float*)a,
+                                                      (const T*)x, (float*)dxp, (float*)partial,
+                                                      B, H, W, Cin, Cout);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   reduce_kernel<<<dim3(Cin, 2), RED_THREADS, 0, st>>>((const float*)partial, (float*)db,
-                                                      (float*)da, B * grid.y * grid.x, Cin);
+                                                      (float*)da, n_blocks, Cin);
   return (int)cudaGetLastError();
 }
 
@@ -398,17 +907,19 @@ extern "C" int dense_conv_fwd_bf16(const void* x, const void* a, const void* b, 
 }
 
 // B7': g (B,H,W,Cout), x (B,H,W,Cin), k (3,3,Cin,Cout) -> dx (B,H,W,Cin),
-// da, db (Cin); partial is an f32 scratch of 2 * B * ceil(H/8) * ceil(W/32) * Cin.
+// da, db (Cin); n_blocks (at most the number of 8x32 tiles) persistent
+// blocks; partial is an f32 scratch of 2 * n_blocks * Cin.
 extern "C" int dense_conv_dx_f32(const void* g, const void* x, const void* a, const void* k,
                                  void* dx_out, void* partial, void* da, void* db, int B, int H,
-                                 int W, int Cin, int Cout, void* stream) {
-  return dx<float>(g, x, a, k, dx_out, partial, da, db, B, H, W, Cin, Cout, stream);
+                                 int W, int Cin, int Cout, int n_blocks, void* stream) {
+  return dx<float>(g, x, a, k, dx_out, partial, da, db, B, H, W, Cin, Cout, n_blocks, stream);
 }
 
 extern "C" int dense_conv_dx_bf16(const void* g, const void* x, const void* a, const void* k,
                                   void* dx_out, void* partial, void* da, void* db, int B, int H,
-                                  int W, int Cin, int Cout, void* stream) {
-  return dx<__nv_bfloat16>(g, x, a, k, dx_out, partial, da, db, B, H, W, Cin, Cout, stream);
+                                  int W, int Cin, int Cout, int n_blocks, void* stream) {
+  return dx<__nv_bfloat16>(g, x, a, k, dx_out, partial, da, db, B, H, W, Cin, Cout, n_blocks,
+                           stream);
 }
 
 // B8: x (B,H,W,Cin), g (B,H,W,Cout) -> dk (3,3,Cin,Cout); partial is an f32

@@ -2,7 +2,8 @@
 hand-written CUDA kernels of csrc/dense_conv.cu.
 
 - ``dense_conv_fwd`` B7,  conv3x3(x * a + b, K)
-- ``dense_conv_dx``  B7', dx = conv_T(g, K) * a and da, db
+- ``dense_conv_dx``  B7', dx = conv_T(g, K) * a and da, db (on the tensor
+                     cores: mma.sync, f32 as 3xTF32)
 - ``dense_conv_dk``  B8,  dK
 
 ``KERNELS`` maps each wrapper to its TPU kernel and source. A CPU tensor
@@ -18,7 +19,8 @@ import torch
 
 from .kernel_launch import KERNEL_DTYPES, entry, on_cuda, raise_on
 
-__all__ = ["dense_conv_fwd", "dense_conv_dx", "dense_conv_dk", "dk_chunks", "KERNELS"]
+__all__ = ["dense_conv_fwd", "dense_conv_dx", "dense_conv_dk", "dx_blocks", "dk_chunks",
+           "KERNELS"]
 
 _SRC = "emlight_tpu_torch/csrc/dense_conv.cu"
 # wrapper name -> (TPU kernel id, source in the repo, file:line of the TPU kernel)
@@ -30,6 +32,7 @@ KERNELS = {
 
 _TILE_H, _TILE_W = 8, 32      # the kernels' output tile (TH, TW)
 _DK_TARGET_BLOCKS = 528       # 4 blocks per SM of an H100's 132
+_DX_BLOCKS = 132              # B7': one persistent block per SM of an H100
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -100,9 +103,10 @@ def dense_conv_dx(g: torch.Tensor, x: torch.Tensor, a: torch.Tensor, kernel: tor
     """(dx (B, H, W, Cin), da (Cin,), db (Cin,)), all f32, from the cotangent
     g (B, H, W, Cout) of ``dense_conv_fwd``, its input x and the kernel.
 
-    CPU tensor: ``conv3x3_dx_plain``. CUDA tensor: B7' and the fixed-order sum
-    of its per-block da, db partials (two launches on the current stream),
-    counted once in ``dense_conv_dx.launches``.
+    CPU tensor: ``conv3x3_dx_plain``. CUDA tensor: B7' (``dx_blocks``
+    persistent blocks) and the fixed-order sum of its per-block da, db
+    partials (two launches on the current stream), counted once in
+    ``dense_conv_dx.launches``.
     """
     if not on_cuda(g, "dense_conv_dx"):
         from .dense_conv import conv3x3_dx_plain
@@ -114,18 +118,25 @@ def dense_conv_dx(g: torch.Tensor, x: torch.Tensor, a: torch.Tensor, kernel: tor
     if tuple(g.shape) != (bsz, h, w, cout):
         raise ValueError(f"g {tuple(g.shape)} is not the output of x {tuple(x.shape)}")
     _check({"g": g}, x.dtype, x.device)
-    n_blocks = bsz * _cdiv(h, _TILE_H) * _cdiv(w, _TILE_W)
+    n_blocks = dx_blocks(bsz, h, w)
     partial = torch.empty(2, n_blocks, cin, dtype=torch.float32, device=x.device)
     dx = torch.empty(bsz, h, w, cin, dtype=torch.float32, device=x.device)
     da = torch.empty(cin, dtype=torch.float32, device=x.device)
     db = torch.empty(cin, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = entry("dense_conv", "dense_conv_dx", x.dtype, 8, 5)(
+        rc = entry("dense_conv", "dense_conv_dx", x.dtype, 8, 6)(
             g.data_ptr(), x.data_ptr(), a.data_ptr(), kernel.data_ptr(), dx.data_ptr(),
-            partial.data_ptr(), da.data_ptr(), db.data_ptr(), bsz, h, w, cin, cout, _stream(x))
+            partial.data_ptr(), da.data_ptr(), db.data_ptr(), bsz, h, w, cin, cout, n_blocks,
+            _stream(x))
     raise_on(rc, "dense_conv_dx", f"g {tuple(g.shape)} {g.dtype}, cin {cin}")
     dense_conv_dx.launches += 1
     return dx, da, db
+
+
+def dx_blocks(b: int, h: int, w: int) -> int:
+    """The grid of B7′: one persistent block per SM, never more blocks than
+    8x32 tiles (each block sums dA, dB over the tiles it walks)."""
+    return min(_DX_BLOCKS, b * _cdiv(h, _TILE_H) * _cdiv(w, _TILE_W))
 
 
 def dk_chunks(n_tiles: int, cin: int, cout: int) -> tuple[int, int]:

@@ -19,9 +19,10 @@ the gnomonic sampling pattern, verified here when the tables are built:
   column (times the stride), so no per-pixel index is needed;
 - the bilinear weight is one scalar w0(i, t, k) for every column except at
   most one column jdev(i, t, k) where grid_sample's zero pad kills it.
-On an H100 every one of them is bound by operations (f32 on the CUDA cores)
-at the model's widths; each computes its matmul in the kernel itself. See
-each .cu file's header for the design.
+On an H100 every one of them is bound by operations at the model's widths;
+each computes its matmul in the kernel itself: B1 on the tensor cores
+(wgmma; f32 as 3xTF32), the others in f32 on the CUDA cores. See each .cu
+file's header for the design; ``s1_plan`` is B1's tiling and K split.
 
 A CPU tensor takes the plain version (nn/sphere_conv.py::sphere_conv_plain,
 nn/sphere_conv_vjp.py::dx_plain and dk_plain); a CUDA tensor takes the
@@ -31,6 +32,7 @@ kernel or raises. Each wrapper counts its launches in ``.launches``.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,7 +42,7 @@ from .sphere_conv import sphere_conv_plain, sphere_taps
 
 __all__ = ["structured_tables", "scalar_weight_tables", "sphere_conv_s1", "sphere_conv_s2",
            "sphere_conv_dx", "sphere_conv_dx_s1", "sphere_conv_dx_s1_triple", "sphere_conv_dx_s2",
-           "sphere_conv_dk", "triple_tiles", "KERNELS", "UMAJOR_MIN_PIXELS"]
+           "sphere_conv_dk", "triple_tiles", "s1_plan", "S1Plan", "KERNELS", "UMAJOR_MIN_PIXELS"]
 
 # wrapper name -> (TPU kernel id, source in the repo, file:line of the TPU kernel)
 KERNELS = {
@@ -145,6 +147,62 @@ def _device_inverse_tables(h: int, w: int, stride: int, device: str):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in tabs), fanin
 
 
+@functools.lru_cache(maxsize=None)
+def _device_s1_table(h: int, w: int, device: str) -> tuple[torch.Tensor, int, int]:
+    """B1's gather table: (h, 9, 4, 4) int32, per (row, tap, neighbour) the
+    source row, the column shift, the dead column and w0's float bits (the
+    kernel reads each entry as one int4), on `device` once per shape; and
+    the least and the largest source row offset (rows - i), which size the
+    rows a tile's gather reads."""
+    rows, shifts, _ = structured_tables(h, w, 1)
+    w0, jdev = scalar_weight_tables(h, w, 1)
+    packed = np.stack([rows, shifts, jdev, w0.view(np.int32)], axis=-1).astype(np.int32)
+    offsets = rows - np.arange(h)[:, None, None]
+    return (torch.from_numpy(np.ascontiguousarray(packed)).to(device),
+            min(0, int(offsets.min())), max(0, int(offsets.max())))
+
+
+class S1Plan(NamedTuple):
+    """B1's grid: output tiles of bm flat pixels x bn channels, K walked in
+    9 * ceil(cin / bk) steps (step s: channel slab s // 9, tap s % 9; bk is
+    16 f32 or 32 bf16 channels, 64 bytes), cut into n_split contiguous
+    ranges of `per` steps (the last may be shorter)."""
+    bm: int
+    bn: int
+    bk: int
+    tiles_m: int
+    tiles_n: int
+    n_steps: int
+    per: int
+    n_split: int
+
+
+_S1_BM = 128                  # the kernel's BM
+_S1_BK = {torch.float32: 16, torch.bfloat16: 32}  # and its BK per dtype
+_S1_TARGET_BLOCKS = 264       # 2 blocks per SM of an H100's 132
+_S1_SPLIT_MIN_WORK = 1 << 17  # split K only where cin * cout is at least this
+
+
+def s1_plan(b: int, h: int, w: int, cin: int, cout: int,
+            dtype: torch.dtype = torch.float32) -> S1Plan:
+    """B1's tiles and K split for x (b, h, w, cin) -> cout in `dtype`:
+    128-pixel tiles over the flat b*h*w pixels (so they cross rows and
+    images), 128 output channels per tile (64 when cout <= 64); when the
+    tiles give fewer than about 2 x 132 blocks and cin * cout >= 2**17 (the
+    4x8, 8x16 and 16x32 maps of the generator's wide convs), K is split into
+    enough contiguous step ranges to reach that, each summed into its own
+    partial."""
+    bn = 128 if cout > 64 else 64
+    bk = _S1_BK[dtype]
+    tiles_m, tiles_n = _cdiv(b * h * w, _S1_BM), _cdiv(cout, bn)
+    n_steps = 9 * _cdiv(cin, bk)
+    want = 1
+    if tiles_m * tiles_n < _S1_TARGET_BLOCKS and cin * cout >= _S1_SPLIT_MIN_WORK:
+        want = min(n_steps, _cdiv(_S1_TARGET_BLOCKS, tiles_m * tiles_n))
+    per = _cdiv(n_steps, want)
+    return S1Plan(_S1_BM, bn, bk, tiles_m, tiles_n, n_steps, per, _cdiv(n_steps, per))
+
+
 def _check_pair(a: torch.Tensor, b: torch.Tensor, names: str) -> None:
     """Both 4-d, contiguous, of one kernel dtype, on one device."""
     for t in (a, b):
@@ -199,12 +257,36 @@ def sphere_conv_s1(x: torch.Tensor, kernel: torch.Tensor,
     """Stride-1 sphere conv: x (B, H, W, Cin) f32/bf16, kernel (3, 3, Cin, Cout)
     HWIO in x's dtype, bias (Cout,) f32 -> (B, H, W, Cout) f32.
 
-    CPU tensor: the plain version. CUDA tensor: one launch of the CUDA kernel
-    on the current stream, counted in ``sphere_conv_s1.launches``.
+    CPU tensor: the plain version. CUDA tensor: on the current stream, the
+    kernel's K_t tiling, the kernel with ``s1_plan``'s tiles and, where it
+    splits K, the split-order sum of the partials (two or three launches),
+    counted once in ``sphere_conv_s1.launches``.
     """
     if not on_cuda(x, "sphere_conv_s1"):
         return sphere_conv_plain(x, kernel, bias, 1)
-    out = _forward(x, kernel, bias, 1, "sphere_conv_s1")
+    _validate(x, kernel, bias, 1)
+    b, h, w, cin = x.shape
+    cout = kernel.shape[3]
+    if bias is None:
+        bias = torch.zeros(cout, dtype=torch.float32, device=x.device)
+    plan = s1_plan(b, h, w, cin, cout, x.dtype)
+    table, dmin, dmax = _device_s1_table(h, w, str(x.device))
+    # K_t laid out per (n tile, K step) for the kernel's bulk copies; f32
+    # holds its TF32 hi and lo parts
+    parts = 2 if x.dtype == torch.float32 else 1
+    ktiles = torch.empty(plan.tiles_n * plan.n_steps * plan.bn * plan.bk * parts,
+                         dtype=x.dtype, device=x.device)
+    out = torch.empty(b, h, w, cout, dtype=torch.float32, device=x.device)
+    partial = (torch.empty(plan.n_split, b * h * w, cout, dtype=torch.float32, device=x.device)
+               if plan.n_split > 1 else out)
+    with torch.cuda.device(x.device):
+        rc = entry("sphere_conv_s1", "sphere_conv_s1", x.dtype, 7, 11)(
+            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), table.data_ptr(),
+            ktiles.data_ptr(), partial.data_ptr(), out.data_ptr(), b, h, w, cin, cout, plan.bn,
+            plan.bk, plan.per, plan.n_split, dmin, dmax,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    raise_on(rc, "sphere_conv_s1", f"x {tuple(x.shape)} {x.dtype}, cout {cout}")
     sphere_conv_s1.launches += 1
     return out
 

@@ -64,6 +64,40 @@ def test_kernel_matches_plain(card, dtype, shape, cout):
         assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
 
 
+# B1's tile and split plan on the card: the 4x8 1024 -> 1024 conv of the
+# generator at its batch 8 (K split 17 ways), and tiles that cross rows and
+# images on a ragged map
+S1_PLAN_SHAPES = [((8, 4, 8, 1024), 1024), ((3, 5, 7, 20), 70)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout", S1_PLAN_SHAPES)
+def test_kernel_plan_shapes_match_plain(card, dtype, shape, cout):
+    plan = tker.s1_plan(*shape, cout)
+    assert (plan.n_split > 1) == (shape[1] == 4)
+    x, k, bias = _inputs(shape, cout, card, seed=5)
+    dt = getattr(torch, dtype)
+    x, k = x.to(dt), k.to(dt)
+    before = tker.sphere_conv_s1.launches
+    out = tker.sphere_conv_s1(x, k, bias)
+    torch.cuda.synchronize()
+    assert tker.sphere_conv_s1.launches == before + 1
+    ref = tsc.sphere_conv_plain(x, k, bias)
+    if dtype == "float32":
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    else:
+        assert (out - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+def test_split_k_is_deterministic(card):
+    """The split partials are summed in split order: two runs, same bits."""
+    x, k, bias = _inputs((8, 4, 8, 1024), 1024, card, seed=6)
+    assert tker.s1_plan(8, 4, 8, 1024, 1024).n_split > 1
+    first = tker.sphere_conv_s1(x, k, bias)
+    second = tker.sphere_conv_s1(x, k, bias)
+    assert torch.equal(first, second)
+
+
 def test_kernel_without_bias(card):
     x, k, _ = _inputs((2, 8, 16, 32), 40, card)
     torch.testing.assert_close(tsc.sphere_conv(x, k, None), tsc.sphere_conv_plain(x, k, None),
