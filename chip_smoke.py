@@ -32,8 +32,10 @@ version. Phases, each of which raises on failure:
 7. tcheck   every training kernel (B2 forward, B3/B6/B5 dx, B4 dK) vs its
             plain version at every distinct training shape, f32 and bf16, at
             batch 2 and at the main path's batch (the timed inputs)
-8. ttiming  per-shape kernel vs plain version vs bounds (B1 also vs the
-            cuDNN yardstick), and B3 against B6 at every stride-1 dx shape;
+8. ttiming  per-shape kernel vs plain version vs bounds and the cuDNN
+            yardstick of the same size (B1: the dense conv; B4:
+            conv2d_weight; B3 and B6: conv2d_input), and B3 against B6 at
+            every stride-1 dx shape; sums by kernel and by map;
             the G step and the D step at batch 8; one profiled G step: idle
             share, top device work
 9. tcpu     one G step and one D step at batch 2 on a reduced config, card
@@ -103,6 +105,8 @@ REG_METRICS = {"loss", "dist_emloss", "dist_l2loss", "intensity_loss", "rgb_loss
 # GRAD_SPREAD times the CPU's own spread, the change a JITTER-relative
 # perturbation of the batch makes to the CPU's gradients (see grad_ratios)
 GRAD_REL, GRAD_FLOOR, GRAD_SPREAD, JITTER = 1e-3, 1e-3, 4.0, 1e-6
+# the cuDNN call timed beside each kind of kernel as its yardstick
+YARDSTICK = {"fwd": "conv", "dk": "conv2d_weight", "dx": "conv2d_input"}
 
 
 def log(*a):
@@ -221,6 +225,22 @@ def dense_conv_yardstick(torch, x, cout):
     w_cl = torch.randn(cout, x.shape[3], 3, 3, device=x.device).contiguous(
         memory_format=torch.channels_last)
     return lambda: F.conv2d(x_cl, w_cl, padding=1)
+
+
+def dense_grad_yardstick(torch, kind, x, g, stride):
+    """cuDNN's gradient of a dense 3x3 conv (padding 1, channels_last, TF32
+    off as main sets it) at the sphere conv's sizes: ``conv2d_weight`` for dK
+    (beside B4), ``conv2d_input`` for dx (beside B3 and B6). Yardsticks of
+    what a library gradient of that size costs, not the same function."""
+    x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # NHWC in memory
+    cin, cout = x.shape[3], g.shape[3]
+    w_cl = torch.randn(cout, cin, 3, 3, device=x.device).contiguous(
+        memory_format=torch.channels_last)
+    if kind == "dk":
+        return lambda: torch.nn.grad.conv2d_weight(x_cl, (cout, cin, 3, 3), g_cl, stride=stride,
+                                                   padding=1)
+    return lambda: torch.nn.grad.conv2d_input(tuple(x_cl.shape), w_cl, g_cl, stride=stride,
+                                              padding=1)
 
 
 def grad_ratios(port: dict, ref: dict) -> list:
@@ -423,6 +443,10 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
         if name == "sphere_conv_s1":
             row["dense_conv_yardstick_ms"] = cuda_ms(
                 torch, dense_conv_yardstick(torch, inputs[0], cout), warmup=1, iters=5)
+        elif kind == "dk" or (kind == "dx" and stride == 1):
+            row["dense_conv_yardstick_ms"] = cuda_ms(
+                torch, dense_grad_yardstick(torch, kind, inputs[0], inputs[3], stride),
+                warmup=1, iters=5)
         if kind == "dx" and stride == 1:
             # B3 and B6 on the same inputs: where the routing gate should lie
             x_, k_, _, g_ = inputs
@@ -442,8 +466,9 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
             f"x{row['per_g_step']}/G x{row['per_d_step']}/D: kernel {row['ms']:.4f} ms, "
             f"plain {row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}), tc bound "
             f"{row['tc_bound_ms']:.4f} ms"
-            + (f", cuDNN dense conv yardstick {row['dense_conv_yardstick_ms']:.4f} ms"
-               if "dense_conv_yardstick_ms" in row else "")
+            + (f", cuDNN dense {YARDSTICK[kind]} yardstick "
+               f"{row['dense_conv_yardstick_ms']:.4f} ms" if "dense_conv_yardstick_ms" in row
+               else "")
             + "".join(f", {k[:-3]} {v:.4f} ms" for k, v in row.items()
                       if k.startswith("sphere_conv_dx_s1")))
         del inputs, kern, plain
@@ -459,9 +484,10 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
     per_kernel = {}
     for n in names:
         sel = [r for r in rows if r["kernel"] == n]
+        yard = all("dense_conv_yardstick_ms" in r for r in sel)
         per = {key: sum(r[key] * (r["per_g_step"] + r["per_d_step"]) for r in sel)
                for key in ("ms", "plain_ms", "bound_ms", "tc_bound_ms")
-               + (("dense_conv_yardstick_ms",) if n == "sphere_conv_s1" else ())}
+               + (("dense_conv_yardstick_ms",) if yard else ())}
         ops = sum(r["bound_ms"] * (r["per_g_step"] + r["per_d_step"]) for r in sel
                   if r["bound_by"] == "operations")
         per["bound_by"] = "operations" if ops >= per["bound_ms"] / 2 else "bytes"
@@ -470,20 +496,24 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
         f"{step_ms['D']:.3f} ms; per G+D step: " + "; ".join(
             f"{n} kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.3f}, "
             f"tc bound {v['tc_bound_ms']:.3f}"
-            + (f", cuDNN dense conv yardstick {v['dense_conv_yardstick_ms']:.3f}"
+            + (f", cuDNN yardstick {v['dense_conv_yardstick_ms']:.3f}"
                if "dense_conv_yardstick_ms" in v else "")
             for n, v in per_kernel.items()))
     by_map: dict = {}
     for r in rows:
         n = r["per_g_step"] + r["per_d_step"]
         agg = by_map.setdefault((r["kernel"], r["shape"][1], r["shape"][2]),
-                                {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0})
+                                {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                 "tc_bound_ms": 0.0, "dense_conv_yardstick_ms": 0.0})
         agg["launches"] += n
-        for key in ("ms", "plain_ms", "bound_ms"):
-            agg[key] += r[key] * n
+        for key in ("ms", "plain_ms", "bound_ms", "tc_bound_ms", "dense_conv_yardstick_ms"):
+            agg[key] += r.get(key, 0.0) * n
     for (n, h, w), v in sorted(by_map.items()):
         log(f"[ttiming] by map, per G+D step: {n} {h}x{w} x{v['launches']}: kernel "
-            f"{v['ms']:.3f} ms, plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.4f}")
+            f"{v['ms']:.3f} ms, plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.4f}, tc bound "
+            f"{v['tc_bound_ms']:.4f}"
+            + (f", cuDNN yardstick {v['dense_conv_yardstick_ms']:.3f}"
+               if v["dense_conv_yardstick_ms"] else ""))
     cross: dict = {}
     for r in rows:
         if "sphere_conv_dx_s1_ms" in r:
@@ -526,6 +556,8 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
             "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound_ms"],
             "tc_bound_ms": v["tc_bound_ms"], "bound_by": v["bound_by"], "library_ms": None,
         })
+        if "dense_conv_yardstick_ms" in v:
+            entries[-1]["dense_conv_yardstick_ms"] = v["dense_conv_yardstick_ms"]
     return {"entries": entries, "b1_train_launches": totals["sphere_conv_s1"],
             "b1_train": per_kernel["sphere_conv_s1"]}
 

@@ -1,9 +1,9 @@
-// Sphere conv input gradient (dx), strides 1 and 2 — hand-written CUDA C++
-// for sm_90a (H100).
+// Sphere conv input gradient (dx) at stride 2 — hand-written CUDA C++ for
+// sm_90a (H100).
 //
-// Replaces emlight_tpu/nn/sphere_conv_vjp.py::_dx_kernel_s1_umajor (the
-// Pallas TPU kernel B3, stride 1) and ::_dx_kernel_s2 (B5, stride 2), both
-// launched by _dx_pallas. The forward reads
+// Replaces emlight_tpu/nn/sphere_conv_vjp.py::_dx_kernel_s2 (the Pallas TPU
+// kernel B5, launched by _dx_pallas); stride 1 (B3) is
+// csrc/sphere_conv_dx_s1.cu. The forward reads
 //
 //   out[i, j] += w(i,t,k,j) * x[rows[i,t,k], (stride*j + s[i,t,k]) mod W] @ K_t
 //
@@ -31,8 +31,8 @@
 //    values). It stages the row's table slots in shared memory and, for each
 //    slot, every thread adds w * U[tap][out_row][j] to 8 register
 //    accumulators, with j the output column whose shifted read lands on the
-//    thread's input column: j = (col - s) mod W at stride 1; at stride 2 only
-//    when (col - s) mod W is even, j = that / 2. This writes even and odd
+//    thread's input column: only when (col - s) mod W is even, j = that / 2
+//    (the template keeps the stride, S = 2 the one built). This writes even and odd
 //    columns in place, so no parity planes are needed. Slots with w0 == 0 are
 //    skipped rather than multiplied (0 * inf would poison dx), and the dead
 //    column j == jdev adds nothing. It is a gather: no atomics, and each dx
@@ -206,7 +206,7 @@ template <typename T>
 int launch(const void* g, const void* kmat, void* u, const void* orow, const void* tap,
            const void* shift, const void* w0, const void* jdev, void* dx, int B, int H,
            int W, int Cin, int Cout, int stride, int fanin, void* stream) {
-  if ((stride != 1 && stride != 2) || fanin > MAX_FANIN || fanin < 1) return (int)cudaErrorInvalidValue;
+  if (stride != 2 || fanin > MAX_FANIN || fanin < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int Ho = H / stride, Wo = W / stride;
   const int M = B * Ho * Wo;
@@ -216,15 +216,9 @@ int launch(const void* g, const void* kmat, void* u, const void* orow, const voi
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   const dim3 ggrid(H, B, (W * Cin + NTHREADS * ELEMS - 1) / (NTHREADS * ELEMS));
-  if (stride == 1) {
-    dx_gather_kernel<1><<<ggrid, NTHREADS, 0, st>>>(
-        (const float*)u, (const int*)orow, (const int*)tap, (const int*)shift,
-        (const float*)w0, (const int*)jdev, (float*)dx, H, W, Cin, fanin);
-  } else {
-    dx_gather_kernel<2><<<ggrid, NTHREADS, 0, st>>>(
-        (const float*)u, (const int*)orow, (const int*)tap, (const int*)shift,
-        (const float*)w0, (const int*)jdev, (float*)dx, H, W, Cin, fanin);
-  }
+  dx_gather_kernel<2><<<ggrid, NTHREADS, 0, st>>>(
+      (const float*)u, (const int*)orow, (const int*)tap, (const int*)shift,
+      (const float*)w0, (const int*)jdev, (float*)dx, H, W, Cin, fanin);
   return (int)cudaGetLastError();
 }
 

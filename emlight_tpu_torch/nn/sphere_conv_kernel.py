@@ -4,7 +4,7 @@ the hand-written CUDA kernels.
 Kernels (``KERNELS`` maps each wrapper to its TPU kernel and source):
 - ``sphere_conv_s1``    B1, forward at stride 1     (csrc/sphere_conv_s1.cu)
 - ``sphere_conv_s2``    B2, forward at stride 2     (csrc/sphere_conv_s2.cu)
-- ``sphere_conv_dx_s1`` B3, dx at stride 1          (csrc/sphere_conv_dx.cu)
+- ``sphere_conv_dx_s1`` B3, dx at stride 1          (csrc/sphere_conv_dx_s1.cu)
 - ``sphere_conv_dx_s1_triple`` B6, dx at stride 1 on the small maps
                                                     (csrc/sphere_conv_dx_triple.cu)
 - ``sphere_conv_dx_s2`` B5, dx at stride 2          (csrc/sphere_conv_dx.cu)
@@ -20,9 +20,10 @@ the gnomonic sampling pattern, verified here when the tables are built:
 - the bilinear weight is one scalar w0(i, t, k) for every column except at
   most one column jdev(i, t, k) where grid_sample's zero pad kills it.
 On an H100 every one of them is bound by operations at the model's widths;
-each computes its matmul in the kernel itself: B1 on the tensor cores
-(wgmma; f32 as 3xTF32), the others in f32 on the CUDA cores. See each .cu
-file's header for the design; ``s1_plan`` is B1's tiling and K split.
+each computes its matmul in the kernel itself: B1 (wgmma), B3 and B4
+(mma.sync) on the tensor cores, f32 as 3xTF32; the others in f32 on the
+CUDA cores. See each .cu file's header for the design; ``s1_plan`` is B1's
+tiling and K split, ``dk_plan`` B4's grid and pixel split.
 
 A CPU tensor takes the plain version (nn/sphere_conv.py::sphere_conv_plain,
 nn/sphere_conv_vjp.py::dx_plain and dk_plain); a CUDA tensor takes the
@@ -42,7 +43,8 @@ from .sphere_conv import sphere_conv_plain, sphere_taps
 
 __all__ = ["structured_tables", "scalar_weight_tables", "sphere_conv_s1", "sphere_conv_s2",
            "sphere_conv_dx", "sphere_conv_dx_s1", "sphere_conv_dx_s1_triple", "sphere_conv_dx_s2",
-           "sphere_conv_dk", "triple_tiles", "s1_plan", "S1Plan", "KERNELS", "UMAJOR_MIN_PIXELS"]
+           "sphere_conv_dk", "triple_tiles", "s1_plan", "S1Plan", "dk_plan", "DKPlan",
+           "tc_width", "KERNELS", "UMAJOR_MIN_PIXELS"]
 
 # wrapper name -> (TPU kernel id, source in the repo, file:line of the TPU kernel)
 KERNELS = {
@@ -50,7 +52,7 @@ KERNELS = {
                        "emlight_tpu/nn/sphere_conv_pallas.py:113"),  # _kernel, stride 1
     "sphere_conv_s2": ("B2", "emlight_tpu_torch/csrc/sphere_conv_s2.cu",
                        "emlight_tpu/nn/sphere_conv_pallas.py:113"),  # _kernel, stride 2
-    "sphere_conv_dx_s1": ("B3", "emlight_tpu_torch/csrc/sphere_conv_dx.cu",
+    "sphere_conv_dx_s1": ("B3", "emlight_tpu_torch/csrc/sphere_conv_dx_s1.cu",
                           "emlight_tpu/nn/sphere_conv_vjp.py:199"),  # _dx_kernel_s1_umajor
     "sphere_conv_dx_s1_triple": ("B6", "emlight_tpu_torch/csrc/sphere_conv_dx_triple.cu",
                                  "emlight_tpu/nn/sphere_conv_vjp.py:159"),  # _dx_kernel_s1
@@ -147,19 +149,50 @@ def _device_inverse_tables(h: int, w: int, stride: int, device: str):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in tabs), fanin
 
 
+def _packed_table(h: int, w: int, stride: int) -> np.ndarray:
+    """(h // stride, 9, 4, 4) int32: per (output row, tap, neighbour) the
+    source row, the column shift, the dead column and w0's float bits, which
+    a kernel reads as one int4."""
+    rows, shifts, _ = structured_tables(h, w, stride)
+    w0, jdev = scalar_weight_tables(h, w, stride)
+    return np.ascontiguousarray(
+        np.stack([rows, shifts, jdev, w0.view(np.int32)], axis=-1).astype(np.int32))
+
+
 @functools.lru_cache(maxsize=None)
 def _device_s1_table(h: int, w: int, device: str) -> tuple[torch.Tensor, int, int]:
-    """B1's gather table: (h, 9, 4, 4) int32, per (row, tap, neighbour) the
-    source row, the column shift, the dead column and w0's float bits (the
-    kernel reads each entry as one int4), on `device` once per shape; and
-    the least and the largest source row offset (rows - i), which size the
-    rows a tile's gather reads."""
-    rows, shifts, _ = structured_tables(h, w, 1)
-    w0, jdev = scalar_weight_tables(h, w, 1)
-    packed = np.stack([rows, shifts, jdev, w0.view(np.int32)], axis=-1).astype(np.int32)
+    """B1's gather table, ``_packed_table(h, w, 1)``, on `device` once per
+    shape; and the least and the largest source row offset (rows - i),
+    which size the rows a tile's gather reads."""
+    rows, _, _ = structured_tables(h, w, 1)
     offsets = rows - np.arange(h)[:, None, None]
-    return (torch.from_numpy(np.ascontiguousarray(packed)).to(device),
+    return (torch.from_numpy(_packed_table(h, w, 1)).to(device),
             min(0, int(offsets.min())), max(0, int(offsets.max())))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_dk_table(h: int, w: int, stride: int, device: str) -> torch.Tensor:
+    """B4's gather table, ``_packed_table(h, w, stride)``, on `device` once
+    per (shape, stride)."""
+    return torch.from_numpy(_packed_table(h, w, stride)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tap_tables(h: int, w: int, device: str):
+    """B3's tables from ``tap_grouped_tables(h, w)``: the slots (h, 9, smax,
+    4) int32, per slot the output row, the column shift, the dead column and
+    w0's float bits (one int4), and the counts (h, 9) int32, on `device`
+    once per shape; smax; and the least and the largest output row offset
+    of a slot (out_row - r), which size the g rows a tile reads."""
+    from .sphere_conv_vjp import tap_grouped_tables
+
+    counts, orow, shifts, w0, jdev, smax = tap_grouped_tables(h, w)
+    packed = np.stack([orow, shifts, jdev, w0.view(np.int32)], axis=-1).astype(np.int32)
+    live = np.arange(smax)[None, None, :] < counts[..., None]
+    offsets = (orow - np.arange(h)[:, None, None])[live]
+    return (torch.from_numpy(np.ascontiguousarray(packed)).to(device),
+            torch.from_numpy(np.ascontiguousarray(counts)).to(device), smax,
+            min(0, int(offsets.min(initial=0))), max(0, int(offsets.max(initial=0))))
 
 
 class S1Plan(NamedTuple):
@@ -306,7 +339,8 @@ def sphere_conv_s2(x: torch.Tensor, kernel: torch.Tensor,
     return out
 
 
-def _dx(g: torch.Tensor, kernel: torch.Tensor, x_shape, stride: int) -> torch.Tensor:
+def _check_dx(g: torch.Tensor, kernel: torch.Tensor, x_shape, stride: int):
+    """(b, h, w, cin, cout) of a dx call, after checking its arguments."""
     _check_pair(g, kernel, "g and kernel")
     b, h, w, cin = (int(v) for v in x_shape)
     cout = g.shape[3]
@@ -315,33 +349,53 @@ def _dx(g: torch.Tensor, kernel: torch.Tensor, x_shape, stride: int) -> torch.Te
                          f"x {tuple(x_shape)}")
     if tuple(kernel.shape) != (3, 3, cin, cout):
         raise ValueError(f"kernel must be (3, 3, {cin}, {cout}), got {tuple(kernel.shape)}")
-    (orow, tap, shift, w0, jdev), fanin = _device_inverse_tables(h, w, stride, str(g.device))
-    u = torch.empty(b, 9, h // stride, w // stride, cin, dtype=torch.float32, device=g.device)
-    dx = torch.empty(b, h, w, cin, dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        rc = entry("sphere_conv_dx", "sphere_conv_dx", g.dtype, 9, 7)(
-            g.data_ptr(), kernel.data_ptr(), u.data_ptr(), orow.data_ptr(), tap.data_ptr(),
-            shift.data_ptr(), w0.data_ptr(), jdev.data_ptr(), dx.data_ptr(),
-            b, h, w, cin, cout, stride, fanin,
-            torch.cuda.current_stream(g.device).cuda_stream,
-        )
-    raise_on(rc, f"sphere_conv_dx_s{stride}", f"g {tuple(g.shape)} {g.dtype}, cin {cin}")
-    return dx
+    return b, h, w, cin, cout
+
+
+_TC_WIDTHS = (256, 128, 64, 32)  # the block widths B3 and B4 are built for
+
+
+def tc_width(n: int) -> int:
+    """B3's and B4's block width along N (Cin for B3, Cout for B4): the one
+    of 256, 128, 64 and 32 whose tiles pad n least, the widest on a tie."""
+    return min(_TC_WIDTHS, key=lambda bn: (_cdiv(n, bn) * bn, -bn))
+
+
+_DX_S1_MAX_W = 256  # B3 stages whole g rows of a tile in shared memory
 
 
 def sphere_conv_dx_s1(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.Tensor:
     """dx (B, H, W, Cin) f32 of a stride-1 sphere conv from its cotangent g
-    (B, H, W, Cout) and kernel (3, 3, Cin, Cout), both in one dtype.
+    (B, H, W, Cout) and kernel (3, 3, Cin, Cout), both in one dtype. W at
+    most 256.
 
-    CPU tensor: ``dx_plain``. CUDA tensor: the U product and the gather over
-    ``inverse_tables`` (two launches on the current stream), counted once in
-    ``sphere_conv_dx_s1.launches``.
+    CPU tensor: ``dx_plain``. CUDA tensor: on the current stream, the K_t
+    tiling and the kernel over ``tap_grouped_tables`` (Σ_t Ĝ_t K_tᵀ on the
+    tensor cores, no U), counted once in ``sphere_conv_dx_s1.launches``.
     """
     if not on_cuda(g, "sphere_conv_dx_s1"):
         from .sphere_conv_vjp import dx_plain
 
         return dx_plain(g, kernel, x_shape, 1)
-    dx = _dx(g, kernel, x_shape, 1)
+    b, h, w, cin, cout = _check_dx(g, kernel, x_shape, 1)
+    if w > _DX_S1_MAX_W:
+        raise ValueError(f"sphere_conv_dx_s1 takes W <= {_DX_S1_MAX_W}, got {w}")
+    slots, counts, smax, dmin, dmax = _device_tap_tables(h, w, str(g.device))
+    # K_t as the kernel's B fragments: per K step (64 bytes of Cout channels,
+    # one tap) and 8 input channels, 256 words in f32 (TF32 hi and lo), 128
+    # in bf16
+    f32 = g.dtype == torch.float32
+    n_steps = 9 * _cdiv(cout, 16 if f32 else 32)
+    ktiles = torch.empty(n_steps * _cdiv(cin, 8) * (256 if f32 else 128), dtype=torch.int32,
+                         device=g.device)
+    dx = torch.empty(b, h, w, cin, dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = entry("sphere_conv_dx_s1", "sphere_conv_dx_s1", g.dtype, 6, 9)(
+            g.data_ptr(), kernel.data_ptr(), ktiles.data_ptr(), slots.data_ptr(),
+            counts.data_ptr(), dx.data_ptr(), b, h, w, cin, cout, tc_width(cin), smax, dmin,
+            dmax, torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    raise_on(rc, "sphere_conv_dx_s1", f"g {tuple(g.shape)} {g.dtype}, cin {cin}")
     sphere_conv_dx_s1.launches += 1
     return dx
 
@@ -362,13 +416,7 @@ def sphere_conv_dx_s1_triple(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> 
         from .sphere_conv_vjp import dx_plain
 
         return dx_plain(g, kernel, x_shape, 1)
-    _check_pair(g, kernel, "g and kernel")
-    b, h, w, cin = (int(v) for v in x_shape)
-    cout = g.shape[3]
-    if tuple(g.shape) != (b, h, w, cout):
-        raise ValueError(f"g {tuple(g.shape)} is not the stride-1 output of x {tuple(x_shape)}")
-    if tuple(kernel.shape) != (3, 3, cin, cout):
-        raise ValueError(f"kernel must be (3, 3, {cin}, {cout}), got {tuple(kernel.shape)}")
+    b, h, w, cin, cout = _check_dx(g, kernel, x_shape, 1)
     if w > _TRIPLE_MAX_W:
         raise ValueError(f"sphere_conv_dx_s1_triple takes W <= {_TRIPLE_MAX_W}, got {w}")
     (orow, tap, shift, w0, jdev), fanin = _device_inverse_tables(h, w, 1, str(g.device))
@@ -391,15 +439,26 @@ def sphere_conv_dx_s2(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.T
     """dx (B, H, W, Cin) f32 of a stride-2 sphere conv from its cotangent g
     (B, H/2, W/2, Cout) and kernel (3, 3, Cin, Cout), both in one dtype.
 
-    CPU tensor: ``dx_plain``. CUDA tensor: as ``sphere_conv_dx_s1``, with
-    even and odd input columns written in place; counted in
+    CPU tensor: ``dx_plain``. CUDA tensor: the U product and the gather over
+    ``inverse_tables`` (two launches on the current stream), even and odd
+    input columns written in place; counted once in
     ``sphere_conv_dx_s2.launches``.
     """
     if not on_cuda(g, "sphere_conv_dx_s2"):
         from .sphere_conv_vjp import dx_plain
 
         return dx_plain(g, kernel, x_shape, 2)
-    dx = _dx(g, kernel, x_shape, 2)
+    b, h, w, cin, cout = _check_dx(g, kernel, x_shape, 2)
+    (orow, tap, shift, w0, jdev), fanin = _device_inverse_tables(h, w, 2, str(g.device))
+    u = torch.empty(b, 9, h // 2, w // 2, cin, dtype=torch.float32, device=g.device)
+    dx = torch.empty(b, h, w, cin, dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = entry("sphere_conv_dx", "sphere_conv_dx", g.dtype, 9, 7)(
+            g.data_ptr(), kernel.data_ptr(), u.data_ptr(), orow.data_ptr(), tap.data_ptr(),
+            shift.data_ptr(), w0.data_ptr(), jdev.data_ptr(), dx.data_ptr(),
+            b, h, w, cin, cout, 2, fanin, torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    raise_on(rc, "sphere_conv_dx_s2", f"g {tuple(g.shape)} {g.dtype}, cin {cin}")
     sphere_conv_dx_s2.launches += 1
     return dx
 
@@ -443,22 +502,53 @@ def sphere_conv_dx(g: torch.Tensor, kernel: torch.Tensor, x_shape, stride: int) 
     raise ValueError(f"sphere conv stride must be 1 or 2, got {stride}")
 
 
-_DK_SLAB = 16          # pixels per staged slab (the kernel's BK)
-_DK_TARGET_BLOCKS = 528  # 4 blocks per SM of an H100's 132
-
-
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def dk_chunks(n_pix: int, cin: int, cout: int) -> tuple[int, int]:
-    """(pixels per chunk, chunk count) of the dK kernel's pixel split: enough
-    chunks that the (cin tile, cout tile, tap, chunk) grid has about 4 blocks
-    per SM, each chunk a whole number of 16-pixel slabs."""
-    tiles = _cdiv(cin, 64) * _cdiv(cout, 64) * 9
-    want = max(1, min(_cdiv(_DK_TARGET_BLOCKS, tiles), _cdiv(n_pix, _DK_SLAB)))
-    chunk = _cdiv(_cdiv(n_pix, want), _DK_SLAB) * _DK_SLAB
-    return chunk, _cdiv(n_pix, chunk)
+class DKPlan(NamedTuple):
+    """B4's grid: tiles_m blocks of bm rows of the flattened (tap, cin) axis
+    times tiles_n of bn output channels, and the pixel axis cut into
+    n_chunks contiguous chunks of `chunk` pixels (a whole number of
+    `slab`-pixel slabs; the last chunk may be shorter)."""
+    bm: int
+    bn: int
+    slab: int
+    tiles_m: int
+    tiles_n: int
+    chunk: int
+    n_chunks: int
+
+
+_DK_BM, _DK_SLAB = 64, 16       # the kernel's BM and KS
+_DK_SMS = 132                   # an H100's SMs: one block each
+_DK_BLOCK_SLABS = 4             # a block's fixed cost, in slabs' time
+_DK_MAX_CHUNKS = 1024
+_DK_PARTIAL_BYTES = 64 << 20    # the most the chunks' partials may take
+
+
+@functools.lru_cache(maxsize=None)
+def dk_plan(n_pix: int, cin: int, cout: int) -> DKPlan:
+    """B4's grid for n_pix output pixels, x with cin channels, g with cout:
+    64-row tiles over the 9 * cin (tap, channel) rows (cin <= 7 puts all 9
+    taps in one), ``tc_width(cout)`` channels per tile, and the pixels cut
+    into the chunk count that finishes soonest on 132 SMs holding one block
+    each: the rounds of blocks, ceil(tiles * chunks / 132), times a block's
+    slabs plus its fixed cost, as long as the chunks' partials stay within
+    64 MiB."""
+    bn = tc_width(cout)
+    tiles_m, tiles_n = _cdiv(9 * cin, _DK_BM), _cdiv(cout, bn)
+    tiles = tiles_m * tiles_n
+    n_slabs = _cdiv(n_pix, _DK_SLAB)
+    most = max(1, min(_DK_MAX_CHUNKS, n_slabs, _DK_PARTIAL_BYTES // (9 * cin * cout * 4)))
+
+    def cost(n):
+        per = _cdiv(n_slabs, n)
+        return _cdiv(tiles * _cdiv(n_slabs, per), _DK_SMS) * (per + _DK_BLOCK_SLABS)
+
+    want = min(range(1, most + 1), key=lambda n: (cost(n), n))
+    chunk = _cdiv(n_slabs, want) * _DK_SLAB
+    return DKPlan(_DK_BM, bn, _DK_SLAB, tiles_m, tiles_n, chunk, _cdiv(n_pix, chunk))
 
 
 def sphere_conv_dk(x: torch.Tensor, g: torch.Tensor, stride: int = 1) -> torch.Tensor:
@@ -466,9 +556,10 @@ def sphere_conv_dk(x: torch.Tensor, g: torch.Tensor, stride: int = 1) -> torch.T
     input x (B, H, W, Cin) and cotangent g (B, H/stride, W/stride, Cout), both
     in one dtype.
 
-    CPU tensor: ``dk_plain``. CUDA tensor: per-chunk partials and their sum in
-    a fixed order (two launches on the current stream), counted once in
-    ``sphere_conv_dk.launches``.
+    CPU tensor: ``dk_plain``. CUDA tensor: the kernel with ``dk_plan``'s
+    grid and, where it cuts the pixels into chunks, the chunk-order sum of
+    their partials (one or two launches on the current stream), counted once
+    in ``sphere_conv_dk.launches``.
     """
     if not on_cuda(x, "sphere_conv_dk"):
         from .sphere_conv_vjp import dk_plain
@@ -482,15 +573,15 @@ def sphere_conv_dk(x: torch.Tensor, g: torch.Tensor, stride: int = 1) -> torch.T
     if h % stride or w % stride or tuple(g.shape[:3]) != (b, h // stride, w // stride):
         raise ValueError(f"g {tuple(g.shape)} is not the stride-{stride} output of "
                          f"x {tuple(x.shape)}")
-    rows, shifts, w0, jdev = _device_tables(h, w, stride, str(x.device))
-    chunk, n_chunks = dk_chunks(b * (h // stride) * (w // stride), cin, cout)
-    partial = torch.empty(n_chunks, 9, cin, cout, dtype=torch.float32, device=x.device)
+    table = _device_dk_table(h, w, stride, str(x.device))
+    plan = dk_plan(b * (h // stride) * (w // stride), cin, cout)
     dk = torch.empty(3, 3, cin, cout, dtype=torch.float32, device=x.device)
+    partial = (torch.empty(plan.n_chunks, 9, cin, cout, dtype=torch.float32, device=x.device)
+               if plan.n_chunks > 1 else dk)
     with torch.cuda.device(x.device):
-        rc = entry("sphere_conv_dk", "sphere_conv_dk", x.dtype, 8, 8)(
-            x.data_ptr(), g.data_ptr(), rows.data_ptr(), shifts.data_ptr(), w0.data_ptr(),
-            jdev.data_ptr(), partial.data_ptr(), dk.data_ptr(),
-            b, h, w, cin, cout, stride, chunk, n_chunks,
+        rc = entry("sphere_conv_dk", "sphere_conv_dk", x.dtype, 5, 9)(
+            x.data_ptr(), g.data_ptr(), table.data_ptr(), partial.data_ptr(), dk.data_ptr(),
+            b, h, w, cin, cout, stride, plan.bn, plan.chunk, plan.n_chunks,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     raise_on(rc, "sphere_conv_dk", f"x {tuple(x.shape)} {x.dtype}, cout {cout}, stride {stride}")

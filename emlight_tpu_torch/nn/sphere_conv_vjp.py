@@ -10,7 +10,9 @@ so its transpose is
 - dx: U[t] = g @ K_tᵀ, then dx[r, (stride*j + s) mod W] += w * U[t][i][j]
   over the forward triples (i, t, k) whose source row is r. Grouped per input
   row (``inverse_tables``) or per input pixel (``_inverse_flat_tables``) the
-  scatter becomes a gather of at most 64 terms.
+  scatter becomes a gather of at most 64 terms. U is linear in g, so at
+  stride 1 the sum regroups by tap: dx[r] = Σ_t Ĝ_t[r] K_tᵀ with Ĝ_t the
+  weighted sum of g over the slots of (r, t) (``tap_grouped_tables``).
 - dK[t] = Σ_pixels s_t(x)ᵀ g, with s_t the forward's per-tap sampled operand.
 - dbias = Σ g.
 
@@ -19,7 +21,8 @@ Two implementations of dx and dK:
   ``_dk_gather``). They serve CPU tensors and are the oracles the CUDA
   kernels are checked against.
 - the CUDA kernels B3/B6/B5 (dx: stride 1 on maps of at least / below 2048
-  pixels, stride 2) and B4 (dK), through the wrappers in
+  pixels, B3 by the tap regrouping; stride 2) and B4 (dK), through the
+  wrappers in
   ``nn/sphere_conv_kernel.py``.
 
 ``SphereConvFunction`` ties forward and backward together; the wrappers pick
@@ -43,7 +46,7 @@ from .sphere_conv_kernel import (
     structured_tables,
 )
 
-__all__ = ["inverse_tables", "dx_plain", "dk_plain", "SphereConvFunction"]
+__all__ = ["inverse_tables", "tap_grouped_tables", "dx_plain", "dk_plain", "SphereConvFunction"]
 
 _MAX_FANIN = 64  # padded (i, t, k) triple count per input row
 
@@ -117,6 +120,39 @@ def inverse_tables(h: int, w: int, stride: int = 1):
             w0[r, j] = w0_tab[i, t, k]
             jdev[r, j] = jdev_tab[i, t, k]
     return out_rows, taps, shifts, w0, jdev, fanin
+
+
+@functools.lru_cache(maxsize=None)
+def tap_grouped_tables(h: int, w: int):
+    """The stride-1 ``inverse_tables`` grouped by tap: per (input row r,
+    tap t) the slots of row r with tap t, in their order there (padded
+    slots, w0 == 0, left out).
+
+    Returns (counts, out_rows, shifts, w0, jdev, smax):
+      counts   (H, 9) int32 — slots of (r, t)
+      out_rows, shifts, jdev (H, 9, smax) int32 and w0 (H, 9, smax) f32 —
+               the slots as inverse_tables has them (past counts[r, t]:
+               out_row r, shift 0, w0 0, jdev -1)
+      smax: the most slots of any (r, t)
+    """
+    orow, taps, shifts, w0, jdev, fanin = inverse_tables(h, w, 1)
+    live = [[[m for m in range(fanin) if w0[r, m] != 0 and taps[r, m] == t] for t in range(9)]
+            for r in range(h)]
+    smax = max(1, max(len(ms) for row in live for ms in row))
+    counts = np.zeros((h, 9), np.int32)
+    g_orow = np.repeat(np.arange(h, dtype=np.int32)[:, None, None], 9 * smax, 1).reshape(h, 9, smax)
+    g_shift = np.zeros((h, 9, smax), np.int32)
+    g_w0 = np.zeros((h, 9, smax), np.float32)
+    g_jdev = np.full((h, 9, smax), -1, np.int32)
+    for r in range(h):
+        for t in range(9):
+            ms = live[r][t]
+            counts[r, t] = len(ms)
+            g_orow[r, t, :len(ms)] = orow[r, ms]
+            g_shift[r, t, :len(ms)] = shifts[r, ms]
+            g_w0[r, t, :len(ms)] = w0[r, ms]
+            g_jdev[r, t, :len(ms)] = jdev[r, ms]
+    return counts, g_orow, g_shift, g_w0, g_jdev, smax
 
 
 @functools.lru_cache(maxsize=None)

@@ -207,9 +207,62 @@ def test_dk_kernel_matches_plain(card, dtype, shape, cout, stride):
 
 def test_dk_kernel_is_deterministic(card):
     x, _, g = _grad_inputs((2, 64, 128, 64), 128, 1, card)
+    assert tker.dk_plan(2 * 64 * 128, 64, 128).n_chunks > 1
     a = tker.sphere_conv_dk(x, g, 1)
     b = tker.sphere_conv_dk(x, g, 1)
     assert torch.equal(a, b)
+
+
+# the tensor-core B4 and B3 at their ragged edges: cin 3 -> 384 (all taps
+# in one block row) and cin 6 at stride 2 for B4, 64 -> 3 for both (a K of
+# 27 for B3, one 32-channel block for B4), a 4x8 map at B4's full width,
+# and pixels, channels and rows off every tile
+TC_RAGGED = [((2, 32, 64, 3), 384, 1), ((2, 64, 128, 6), 64, 2), ((2, 128, 256, 64), 3, 1),
+             ((8, 4, 8, 1024), 1024, 1), ((3, 5, 7, 20), 70, 1), ((1, 6, 10, 9), 5, 2)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout,stride", TC_RAGGED)
+def test_tc_dk_matches_plain_at_ragged_shapes(card, dtype, shape, cout, stride):
+    x, _, g = _grad_inputs(shape, cout, stride, card, seed=3, mean_loss=True)
+    dt = getattr(torch, dtype)
+    x, g = x.to(dt), g.to(dt)
+    before = tker.sphere_conv_dk.launches
+    dk = tker.sphere_conv_dk(x, g, stride)
+    torch.cuda.synchronize()
+    assert tker.sphere_conv_dk.launches == before + 1
+    _close(dk, tvjp.dk_plain(x, g, stride), dtype, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout,stride", [sc for sc in TC_RAGGED if sc[2] == 1])
+def test_tc_dx_s1_matches_plain_at_ragged_shapes(card, dtype, shape, cout, stride):
+    x, k, g = _grad_inputs(shape, cout, 1, card, seed=4)
+    dt = getattr(torch, dtype)
+    g, k = g.to(dt), k.to(dt)
+    before = tker.sphere_conv_dx_s1.launches
+    dx = tker.sphere_conv_dx_s1(g, k, tuple(x.shape))
+    torch.cuda.synchronize()
+    assert tker.sphere_conv_dx_s1.launches == before + 1
+    _close(dx, tvjp.dx_plain(g, k, tuple(x.shape), 1), dtype)
+
+
+def test_dx_s1_kernel_is_deterministic(card):
+    x, k, g = _grad_inputs((2, 64, 128, 128), 256, 1, card)
+    a = tker.sphere_conv_dx_s1(g, k, tuple(x.shape))
+    b = tker.sphere_conv_dx_s1(g, k, tuple(x.shape))
+    assert torch.equal(a, b)
+
+
+def test_dx_s1_skips_the_dead_column(card):
+    """An inf in g reaches no dx value through the dead column: wherever
+    the plain version is finite, B3 is too."""
+    x, k, g = _grad_inputs((1, 32, 64, 8), 8, 1, card)
+    g[0, 0, 5, 2] = float("inf")
+    g[0, 31, 40, 1] = float("inf")
+    dx = tker.sphere_conv_dx_s1(g, k, tuple(x.shape))
+    ref = tvjp.dx_plain(g, k, tuple(x.shape), 1)
+    assert torch.equal(torch.isfinite(dx), torch.isfinite(ref))
 
 
 @pytest.mark.parametrize("stride", [1, 2])
@@ -227,6 +280,23 @@ def test_function_backward_uses_the_kernels(card, stride):
                               (x, k, bias))
     assert [c.launches for c in counters] == [n + 1 for n in before]
     ref = torch.autograd.grad(((tsc.sphere_conv_plain(x, k, bias, stride) - tgt) ** 2).sum(),
+                              (x, k, bias))
+    for a, b_ in zip(got, ref):
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-4)
+
+
+def test_function_backward_on_a_large_map_uses_b3_and_b4(card):
+    """A map of at least 2048 pixels: SphereConvFunction's backward launches
+    B3 for dx and B4 for dK, once each, and nothing else of the backward."""
+    x, k, bias = _inputs((2, 32, 64, 8), 12, card)
+    x, k, bias = (t.requires_grad_() for t in (x, k, bias))
+    tgt = torch.rand(2, 32, 64, 12, device=card)
+    counters = (tker.sphere_conv_s1, tker.sphere_conv_dx_s1, tker.sphere_conv_dk,
+                tker.sphere_conv_dx_s1_triple, tker.sphere_conv_dx_s2)
+    before = [c.launches for c in counters]
+    got = torch.autograd.grad(((tsc.sphere_conv(x, k, bias, 1) - tgt) ** 2).sum(), (x, k, bias))
+    assert [c.launches for c in counters] == [n + d for n, d in zip(before, (1, 1, 1, 0, 0))]
+    ref = torch.autograd.grad(((tsc.sphere_conv_plain(x, k, bias, 1) - tgt) ** 2).sum(),
                               (x, k, bias))
     for a, b_ in zip(got, ref):
         torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-4)

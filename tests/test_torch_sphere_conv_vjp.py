@@ -135,7 +135,10 @@ def test_cpu_grad_wrappers_take_the_plain_versions():
 
 
 def test_dk_chunks_cover_every_pixel():
+    """B4's pixel chunks (``dk_plan``): whole 16-pixel slabs, every pixel in
+    one chunk, no chunk empty."""
     for n_pix, cin, cout in [(8 * 32768, 128, 256), (256, 1024, 1024), (16 * 8192, 6, 64),
                              (17, 3, 3), (2 * 8 * 16, 512, 3)]:
-        chunk, n_chunks = tker.dk_chunks(n_pix, cin, cout)
-        assert chunk % 16 == 0 and chunk * n_chunks >= n_pix > chunk * (n_chunks - 1)
+        plan = tker.dk_plan(n_pix, cin, cout)
+        chunk, n_chunks = plan.chunk, plan.n_chunks
+        assert chunk % plan.slab == 0 and chunk * n_chunks >= n_pix > chunk * (n_chunks - 1)

@@ -24,28 +24,10 @@ from emlight_tpu.nn import sphere_conv_pallas as jpal
 from emlight_tpu_torch.nn import dense_conv_kernel as tdk
 from emlight_tpu_torch.nn import sphere_conv as tsc
 from emlight_tpu_torch.nn import sphere_conv_kernel as tker
+from torch_port_helpers import matmul_1xtf32, matmul_3xtf32, tf32
 
 RTOL = ATOL = 1e-4  # the card's f32 bar for B1 and B7′'s dx (chip_smoke.py)
 SUM_RTOL = 1e-3     # da, db: long sums over pixels
-
-
-def tf32(a: np.ndarray) -> np.ndarray:
-    """Round f32 to TF32 (10 mantissa bits), to nearest, ties to even."""
-    u = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
-    r = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
-    return r.astype(np.uint32).view(np.float32)
-
-
-def matmul_3xtf32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    ah = tf32(a)
-    al = tf32(a - ah)
-    bh = tf32(b)
-    bl = tf32(b - bh)
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
-def matmul_1xtf32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    return tf32(a) @ tf32(b)
 
 
 def test_tf32_rounding():

@@ -1,6 +1,7 @@
 """Shared helpers of the tests/test_torch_*.py files: JAX-initialised weights
-as NumPy trees, the port's config for a JAX config, and a fixture that runs a
-module's torch work on one thread."""
+as NumPy trees, the port's config for a JAX config, a fixture that runs a
+module's torch work on one thread, and the NumPy emulation of the tensor-core
+kernels' f32 products (3xTF32)."""
 
 import dataclasses
 
@@ -77,3 +78,41 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def tf32(a: np.ndarray) -> np.ndarray:
+    """Round f32 to TF32 (10 mantissa bits), to nearest, ties to even."""
+    u = np.asarray(a, np.float32).view(np.uint32).astype(np.uint64)
+    r = (u + 0xFFF + ((u >> 13) & 1)) & 0xFFFFE000
+    return r.astype(np.uint32).view(np.float32)
+
+
+def matmul_3xtf32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a @ b as the kernels take an f32 product on the tensor cores: each
+    operand split into TF32 hi and lo, lo*hi + hi*lo + hi*hi in f32."""
+    ah = tf32(a)
+    al = tf32(a - ah)
+    bh = tf32(b)
+    bl = tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def matmul_1xtf32(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return tf32(a) @ tf32(b)
+
+
+def tf32_cut(a: np.ndarray) -> np.ndarray:
+    """f32 cut to TF32 (10 mantissa bits) toward zero: the bits the tensor
+    cores read of a TF32 operand."""
+    return (np.asarray(a, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def matmul_3xtf32_cut(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a @ b as B3 and B4 take an f32 product on the tensor cores: each
+    operand split as hi = v cut to TF32, lo = v - hi (exact), of which the
+    tensor cores read lo cut to TF32; lo*hi + hi*lo + hi*hi in f32."""
+    ah = tf32_cut(a)
+    al = tf32_cut(a - ah)
+    bh = tf32_cut(b)
+    bl = tf32_cut(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
