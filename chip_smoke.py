@@ -31,7 +31,8 @@ version. Phases, each of which raises on failure:
             G's BatchNorm statistics changed
 7. tcheck   every training kernel (B2 forward, B3/B6/B5 dx, B4 dK) vs its
             plain version at every distinct training shape, f32 and bf16, at
-            batch 2 and at the main path's batch (the timed inputs)
+            batch 2 and at the main path's batch (the timed inputs); B3 also
+            at --crop_size 512's 256x512 map (64 -> 3, 128 -> 64, batch 2)
 8. ttiming  per-shape kernel vs plain version vs bounds and the cuDNN
             yardstick of the same size (B1: the dense conv; B4:
             conv2d_weight; B3 and B6: conv2d_input), and B3 against B6 at
@@ -85,11 +86,12 @@ TRAIN_STEPS = 3         # the training path: 3 alternating G + D steps of batch 
 # kernel launches per step at num_d 2, n_layers_d 4 (D runs on 2B): the G
 # step skips dx of the 7 mlp_shared convs (constant guide) and dK of the
 # frozen D; the D step runs G without grad and needs no dx into D's input.
-# Stride-1 dx takes B6 (sphere_conv_dx_s1_triple) below 2048 pixels (the 4x8,
-# 8x16 and 16x32 maps) and B3 (sphere_conv_dx_s1) above: 22 + 19 of the G
-# step's 41, and all 4 of the D step's (D's stride-1 convs read 16x32 and 8x16)
-EXPECTED_G_STEP = {"sphere_conv_s1": 48, "sphere_conv_s2": 6, "sphere_conv_dx_s1": 19,
-                   "sphere_conv_dx_s1_triple": 22, "sphere_conv_dk": 44,
+# Stride-1 dx takes B6 (sphere_conv_dx_s1_triple) below UMAJOR_MIN_PIXELS,
+# 32768 (the 4x8 to 64x128 maps), and B3 (sphere_conv_dx_s1) at 128x256: 34
+# + 7 of the G step's 41, and all 4 of the D step's (D's stride-1 convs read
+# 16x32 and 8x16)
+EXPECTED_G_STEP = {"sphere_conv_s1": 48, "sphere_conv_s2": 6, "sphere_conv_dx_s1": 7,
+                   "sphere_conv_dx_s1_triple": 34, "sphere_conv_dk": 44,
                    "sphere_conv_dx_s2": 6}
 EXPECTED_D_STEP = {"sphere_conv_s1": 48, "sphere_conv_s2": 6, "sphere_conv_dx_s1": 0,
                    "sphere_conv_dx_s1_triple": 4, "sphere_conv_dk": 10,
@@ -101,6 +103,8 @@ REG_BATCH, REG_STEPS, REG_FALL_STEPS = 16, 3, 10
 EXPECTED_REG_STEP = {"dense_conv_fwd": 48, "dense_conv_dx": 48, "dense_conv_dk": 48}
 REG_METRICS = {"loss", "dist_emloss", "dist_l2loss", "intensity_loss", "rgb_loss",
                "ambient_loss"}
+# --crop_size 512's outer stride-1 convs, whose dx B3 is held to at batch 2
+WIDE_DX_SHAPES = [(2, 256, 512, 64, 3, 1), (2, 256, 512, 128, 64, 1)]
 # card vs CPU gradients (phases 9 and 13): each leaf within the larger of GRAD_REL and
 # GRAD_SPREAD times the CPU's own spread, the change a JITTER-relative
 # perturbation of the batch makes to the CPU's gradients (see grad_ratios)
@@ -422,6 +426,12 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
         check(name, kind, shape, kernel_inputs(kind, 2, *shape[1:]))
     log(f"[tcheck] {len(train_shapes)} (kernel, shape) pairs of the training path; "
         f"at batch 2 every training kernel matches its plain version")
+    # B3 on the 256x512 map of --crop_size 512 (wider than two buffers of its
+    # g rows in shared memory: it reads them from device memory)
+    for shape in WIDE_DX_SHAPES:
+        check("sphere_conv_dx_s1", "dx", shape, kernel_inputs("dx", *shape))
+    log(f"[tcheck] sphere_conv_dx_s1 at {WIDE_DX_SHAPES} (B, H, W, Cin, Cout, stride) matches "
+        f"dx_plain in f32 and bf16")
 
     # 8. timing at the main path's batch (and the batch-8 check on the timed inputs)
     rows = []
@@ -454,7 +464,7 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
             for alt in ("sphere_conv_dx_s1", "sphere_conv_dx_s1_triple"):
                 if alt == name:
                     row[f"{alt}_ms"] = row["ms"]
-                elif alt == "sphere_conv_dx_s1" or w <= 128:
+                else:
                     fn = wrappers[alt]
                     torch.testing.assert_close(fn(g_, k_, tuple(x_.shape)), ref, rtol=1e-4,
                                                atol=1e-4, msg=lambda m: f"{alt} {shape}: {m}")
@@ -522,12 +532,11 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
                                    {"launches": 0, "B3": 0.0, "B6": 0.0, "routed": r["kernel"]})
             agg["launches"] += n
             agg["B3"] += r["sphere_conv_dx_s1_ms"] * n
-            b6 = r.get("sphere_conv_dx_s1_triple_ms")
-            agg["B6"] = None if b6 is None or agg["B6"] is None else agg["B6"] + b6 * n
+            agg["B6"] += r["sphere_conv_dx_s1_triple_ms"] * n
     for (h, w), v in sorted(cross.items()):
-        b6 = "not run (W > 128)" if v["B6"] is None else f"{v['B6']:.3f} ms"
         log(f"[ttiming] stride-1 dx by map, per G+D step: {h}x{w} x{v['launches']}: B3 "
-            f"{v['B3']:.3f} ms, B6 {b6}; routed to {v['routed']}")
+            f"{v['B3']:.3f} ms, B6 {v['B6']:.3f} ms; routed to {v['routed']}")
+    tables["train_dx_s1_by_map"] = {f"{h}x{w}": v for (h, w), v in sorted(cross.items())}
     tables["train_steps_ms"] = step_ms
     tables["train_per_kernel"] = per_kernel
 

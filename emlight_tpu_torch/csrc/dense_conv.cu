@@ -16,14 +16,15 @@
 //
 // with t = 3 * ky + kx and off_t = (ky - 1, kx - 1). dA uses the ORIGINAL x.
 //
-// What bounds them on an H100. B7 and B8 on the f32 CUDA cores: operations.
-// At the model's widths (Cin 48, Cout 12) each does 2*9*Cin*Cout = 10368
-// flops per pixel on 240 bytes (f32) of input and output, 43 flops a byte,
-// above the f32 CUDA cores' ridge of 20. B7' on the tensor cores: bytes (it
-// reads g and x and writes dx, 432 bytes a pixel in f32; 3xTF32 lifts the
-// operations' ceiling to 495/3 TFLOP/s). The TPU kernel put the 9 taps on one
-// MXU matmul against a 128-lane padded operand; none of that carries over
-// (no lane padding, no T matrix, no halo DMA).
+// What bounds them on an H100. B7 on the f32 CUDA cores: operations. At the
+// model's widths (Cin 48, Cout 12) each does 2*9*Cin*Cout = 10368 flops per
+// pixel on 240 bytes (f32) of input and output, 43 flops a byte, above the
+// f32 CUDA cores' ridge of 20. B7' and B8 on the tensor cores: bytes (B7'
+// reads g and x and writes dx, 432 bytes a pixel in f32; B8 reads x and g,
+// 240 bytes; 3xTF32 lifts the operations' ceiling to 495/3 TFLOP/s). The
+// TPU kernel put the 9 taps on one MXU matmul against a 128-lane padded
+// operand; none of that carries over (no lane padding, no T matrix, no halo
+// DMA).
 //
 // conv_kernel<T> (B7): one block of 64 threads per tile of 8 x 32 output
 //   pixels and 12 output channels. For each slab of 16 input channels it
@@ -51,13 +52,26 @@
 //   running partial in tile order; reduce_kernel sums the blocks' partials
 //   in block order. No atomics: dA and dB are the same from run to run.
 //   wgmma adds nothing at N = 48 and K = 108 once the kernel is bytes-bound.
-// dk_partial_kernel<T> (B8): one block of 144 threads (9 taps x 16 input
-//   channels, 12 output channels each) per (pixel chunk, 16-channel input
-//   tile, 12-channel output tile). For each 8 x 32 pixel tile of its chunk
-//   it stages the y window (affine on load, zero border) and the g tile,
-//   and each thread adds y * g over the tile's pixels into 12 registers. It
-//   writes one f32 partial per chunk; dk_reduce_kernel sums the chunks in
-//   chunk order. No atomics.
+// dk_kernel<T> (B8): an implicit GEMM on mma.sync per pixel chunk, M = 9
+//   taps x 48 input channels (432 rows; all of the dense layer's Cin, so x
+//   and g are read from device memory once), N = 16 output channels (Cout
+//   12 padded), K = the chunk's pixels. 18 warps, two per tap t owning its
+//   48 rows (3 m16 tiles x 2 n8 tiles), one the top and one the bottom four
+//   rows of every tile; their sums are added, top then bottom, at the end.
+//   The block walks its chunk's 8 x 32 pixel tiles with a two-stage
+//   cp.async ring, as B7' does: the next tile's (8+2) x (32+2) x window and
+//   g tile load while the current one computes.
+//   The affine is applied in shared memory (y = x * a + b rounded to x's
+//   dtype, 0 outside the image: in place for f32, into an f32 window for
+//   bf16, whose g goes to f32 too), and A fragments are read from the
+//   window by im2col addressing (pixel + the tap's offset), B fragments
+//   from the g tile. f32 multiplies in 3xTF32 (v = hi + lo, hi cut to TF32,
+//   lo the exact rest, of which the tensor cores read TF32's bits: lo*hi +
+//   hi*lo + hi*hi); bf16 values are exact in TF32, so one TF32 product.
+//   Each 16-pixel step is summed from zero on the tensor cores and added in
+//   f32 on the CUDA cores (their chained f32 accumulation does not round to
+//   nearest). Each chunk writes one f32 partial; dk_reduce_kernel sums the
+//   chunks in chunk order. No atomics: dK is the same from run to run.
 // bf16 inputs are read as bf16, y is rounded to bf16 as the forward's
 // operand is, and everything is computed and written in f32.
 
@@ -78,7 +92,6 @@ constexpr int WR = TH + 2;            // window rows
 constexpr int WC = TW + 2;            // window columns
 constexpr int WP = 40;                // window row pitch: the 4 rows of a warp on disjoint banks
 constexpr int CP = WR * WP + 1;       // window channel pitch (odd: staging stores spread over banks)
-constexpr int DK_THREADS = 9 * CK;    // 144 (dK)
 constexpr int RED_THREADS = 256;
 
 static_assert(CO % 4 == 0, "kernel rows are read as float4");
@@ -742,86 +755,320 @@ dx_kernel(const T* __restrict__ g, const T* __restrict__ kmat, const float* __re
   }
 }
 
-// partial[chunk][t][c][o] = sum over the chunk's tiles of y[p + off_t, c] g[p, o]
-template <typename T>
-__global__ void __launch_bounds__(DK_THREADS)
-dk_partial_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ a,
-                  const float* __restrict__ bvec, float* __restrict__ partial, int B, int H,
-                  int W, int Cin, int Cout, int tiles_per_chunk) {
-  __shared__ float y_s[WR * WC * CK];  // pixel-major, the 16 channels of a pixel together
-  __shared__ __align__(16) float g_s[TH * TW * CO];
+// ---------------------------------------------------------------------------
+// B8 on the tensor cores: dK[t] = sum_p y[p + off_t]^T g[p] as an implicit
+// GEMM, M = 9 taps x 48 input channels, N = 16 output channels, K = pixels.
+// ---------------------------------------------------------------------------
 
+constexpr int DK_CB = 48;                    // input channels per block: 3 m16 tiles a tap
+constexpr int DK_MT = DK_CB / 16;
+constexpr int DK_NC = 16;                    // output channels per block: 2 n8 tiles
+constexpr int DK_WPT = 2;                    // warps per tap, each half of a tile's rows
+constexpr int DK_THREADS = 9 * DK_WPT * 32;
+constexpr int DK_WPIX = (TH + 2) * (TW + 2); // 340 window pixels
+constexpr int DK_YP = 56;                    // window pixel pitch (f32 words, bf16 values):
+                                             // a fragment's 4 pixels x 8 channels on 32 banks
+constexpr int DK_GP = 24;                    // f32 g pixel pitch, the same for 4 x 8
+constexpr int DK_GRAW = 16;                  // bf16 g pixel pitch as loaded
+static_assert(TW % 16 == 0, "a 16-pixel step lies in one tile row");
+
+constexpr uint32_t TF32_MASK = 0xffffe000u;  // sign, exponent and TF32's 10 mantissa bits
+
+// hi = v cut to TF32's 10 mantissa bits, lo = v - hi (exact); the tensor
+// cores read lo's TF32 bits
+__device__ __forceinline__ void split_tf32_cut(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & TF32_MASK;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// Dynamic shared memory of dk_kernel<T>, byte offsets, 16-byte aligned: a
+// ring of two stages of the x window and g tile as loaded (x's dtype), then,
+// for bf16, the f32 window and g tile the products read (for f32 they are
+// the ring's stage itself, the affine applied in place)
+struct DkLayout {
+  int win, gt, stage;  // offsets in a stage, stage bytes
+  int ywin, yg;        // the f32 window and g tile (bf16 only)
+  int bytes;
+};
+
+__host__ __device__ inline DkLayout dk_layout(int esize) {
+  DkLayout L;
+  const int gp = esize == 4 ? DK_GP : DK_GRAW;
+  L.win = 0;
+  L.gt = round_up(DK_WPIX * DK_YP * esize, 16);
+  L.stage = L.gt + round_up(TH * TW * gp * esize, 16);
+  int o = 2 * L.stage;
+  L.ywin = esize == 4 ? 0 : o;
+  if (esize != 4) o += DK_WPIX * DK_YP * 4;
+  L.yg = esize == 4 ? L.gt : o;
+  if (esize != 4) o += TH * TW * DK_GP * 4;
+  L.bytes = o;
+  return L;
+}
+
+// partial[chunk][t][c][o] = sum over the chunk's tiles of y[p + off_t, c] g[p, o];
+// block (chunk, cin block, cout block): channels [48 y, +48) and [16 z, +16)
+template <typename T>
+__global__ void __launch_bounds__(DK_THREADS, 1)
+dk_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ a,
+          const float* __restrict__ bvec, float* __restrict__ partial, int B, int H, int W,
+          int Cin, int Cout, int tiles_per_chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(16) float s_a[DK_CB];
+  __shared__ __align__(16) float s_b[DK_CB];
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int E = sizeof(T);
+  constexpr int GPR = F32 ? DK_GP : DK_GRAW;  // g pitch of the ring, in values
+  constexpr int CG = DK_CB / 4;               // 4-channel groups of a window pixel
+  const DkLayout L = dk_layout(E);
   const int tid = threadIdx.x;
-  const int t = tid / CK;
-  const int c = tid - t * CK;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int t = warp % 9;        // this warp's tap
+  const int half = warp / 9;     // and its half of a tile's rows
   const int ky = t / 3;
   const int kx = t - ky * 3;
-  const int k0 = blockIdx.y * CK;
-  const int o0 = blockIdx.z * CO;
-  const int kc = min(CK, Cin - k0);
-  const int n_tx = (W + TW - 1) / TW;
-  const int n_ty = (H + TH - 1) / TH;
-  const int n_tiles = B * n_ty * n_tx;
+  const int gq = lane >> 2;
+  const int t4 = lane & 3;
+  const int c0 = blockIdx.y * DK_CB;
+  const int kc = min(DK_CB, Cin - c0);
+  const int o0 = blockIdx.z * DK_NC;
+  const int nc = min(DK_NC, Cout - o0);
+  const int ntx = (W + TW - 1) / TW;
+  const int nty = (H + TH - 1) / TH;
+  const int n_tiles = B * nty * ntx;
   const int first = blockIdx.x * tiles_per_chunk;
-  const int last = min(n_tiles, first + tiles_per_chunk);
+  const int n_units = min(n_tiles, first + tiles_per_chunk) - first;
 
-  float acc[CO];
-#pragma unroll
-  for (int o = 0; o < CO; ++o) acc[o] = 0.f;
+  // zeros everywhere the loads never write (channels past kc and nc, g's
+  // padding), kept for the whole block
+  for (int e = tid; e < L.bytes / 16; e += DK_THREADS)
+    reinterpret_cast<uint4*>(smem)[e] = make_uint4(0, 0, 0, 0);
+  if (tid < DK_CB) {
+    s_a[tid] = tid < kc ? a[c0 + tid] : 0.f;
+    s_b[tid] = tid < kc ? bvec[c0 + tid] : 0.f;
+  }
+  __syncthreads();
 
-  for (int tile = first; tile < last; ++tile) {
-    const int b = tile / (n_ty * n_tx);
-    const int rem = tile - b * n_ty * n_tx;
-    const int r0 = (rem / n_tx) * TH;
-    const int c0 = (rem % n_tx) * TW;
-    __syncthreads();
-    for (int e = tid; e < WR * WC * CK; e += DK_THREADS) {
-      const int cc = e % CK;
-      const int pw = e / CK;
-      const int wr = pw / WC;
-      const int wc = pw - wr * WC;
-      const int gr = r0 - 1 + wr;
-      const int gc = c0 - 1 + wc;
-      float v = 0.f;
-      if (cc < kc && gr >= 0 && gr < H && gc >= 0 && gc < W) {
-        v = Num<T>::load(x[(((size_t)b * H + gr) * W + gc) * Cin + k0 + cc]);
-        v = Num<T>::round(fmaf(v, a[k0 + cc], bvec[k0 + cc]));
+  const int xcb = copy_bytes((kc * E) | (Cin * E) | (c0 * E) | low_bits(x));
+  const int gcb = copy_bytes((nc * E) | (Cout * E) | (o0 * E) | low_bits(g));
+  auto tile_origin = [&](int tile, int& b, int& r0, int& cc0) {
+    b = tile / (nty * ntx);
+    const int rem = tile - b * nty * ntx;
+    r0 = (rem / ntx) * TH;
+    cc0 = (rem % ntx) * TW;
+  };
+  // tile `tile`'s x window and g tile into ring stage st, as x's dtype
+  auto prefetch = [&](int tile, int st) {
+    int b, r0, cc0;
+    tile_origin(tile, b, r0, cc0);
+    T* win = reinterpret_cast<T*>(smem + st * L.stage + L.win);
+    T* gt = reinterpret_cast<T*>(smem + st * L.stage + L.gt);
+    if (xcb) {
+      const int cpp = kc * E / xcb;
+      for (int e = tid; e < DK_WPIX * cpp; e += DK_THREADS) {
+        const int wp = e / cpp;
+        const int part = e - wp * cpp;
+        const int wr = wp / (TW + 2);
+        const int r = r0 - 1 + wr;
+        const int c = cc0 - 1 + wp - wr * (TW + 2);
+        const bool ok = r >= 0 && r < H && c >= 0 && c < W;
+        const char* src = reinterpret_cast<const char*>(x);
+        if (ok) src += ((((size_t)b * H + r) * W + c) * Cin + c0) * E + part * xcb;
+        cp_async(reinterpret_cast<char*>(win) + (size_t)wp * DK_YP * E + part * xcb, src, xcb, ok);
       }
-      y_s[e] = v;
-    }
-    for (int e = tid; e < TH * TW * CO; e += DK_THREADS) {
-      const int o = e % CO;
-      const int p = e / CO;
-      const int gr = r0 + p / TW;
-      const int gc = c0 + p % TW;
-      float v = 0.f;
-      if (o0 + o < Cout && gr < H && gc < W)
-        v = Num<T>::load(g[(((size_t)b * H + gr) * W + gc) * Cout + o0 + o]);
-      g_s[e] = v;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int p = 0; p < TH * TW; ++p) {
-      const int pr = p / TW;
-      const int pc = p - pr * TW;
-      const float yv = y_s[((pr + ky) * WC + pc + kx) * CK + c];
-      const float4* gp = reinterpret_cast<const float4*>(g_s + p * CO);
-#pragma unroll
-      for (int q = 0; q < CO / 4; ++q) {
-        const float4 g4 = gp[q];
-        acc[4 * q] = fmaf(yv, g4.x, acc[4 * q]);
-        acc[4 * q + 1] = fmaf(yv, g4.y, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(yv, g4.z, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(yv, g4.w, acc[4 * q + 3]);
+    } else {
+      for (int e = tid; e < DK_WPIX * kc; e += DK_THREADS) {
+        const int wp = e / kc;
+        const int ch = e - wp * kc;
+        const int wr = wp / (TW + 2);
+        const int r = r0 - 1 + wr;
+        const int c = cc0 - 1 + wp - wr * (TW + 2);
+        win[wp * DK_YP + ch] = (r >= 0 && r < H && c >= 0 && c < W)
+                                   ? x[(((size_t)b * H + r) * W + c) * Cin + c0 + ch]
+                                   : zero_of<T>();
       }
     }
-  }
-  if (c < kc) {
-    float* dst = partial + (((size_t)blockIdx.x * 9 + t) * Cin + k0 + c) * Cout + o0;
+    if (gcb) {
+      const int cpp = nc * E / gcb;
+      for (int e = tid; e < TH * TW * cpp; e += DK_THREADS) {
+        const int tp = e / cpp;
+        const int part = e - tp * cpp;
+        const int r = r0 + tp / TW;
+        const int c = cc0 + tp % TW;
+        const bool ok = r < H && c < W;
+        const char* src = reinterpret_cast<const char*>(g);
+        if (ok) src += ((((size_t)b * H + r) * W + c) * Cout + o0) * E + part * gcb;
+        cp_async(reinterpret_cast<char*>(gt) + (size_t)tp * GPR * E + part * gcb, src, gcb, ok);
+      }
+    } else {
+      for (int e = tid; e < TH * TW * nc; e += DK_THREADS) {
+        const int tp = e / nc;
+        const int ch = e - tp * nc;
+        const int r = r0 + tp / TW;
+        const int c = cc0 + tp % TW;
+        gt[tp * GPR + ch] =
+            (r < H && c < W) ? g[(((size_t)b * H + r) * W + c) * Cout + o0 + ch] : zero_of<T>();
+      }
+    }
+  };
+
+  float acc[DK_MT][2][4];
 #pragma unroll
-    for (int o = 0; o < CO; ++o)
-      if (o0 + o < Cout) dst[o] = acc[o];
+  for (int mt = 0; mt < DK_MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+
+  if (n_units > 0) prefetch(first, 0);
+  cp_async_commit();
+  for (int u = 0; u < n_units; ++u) {
+    const int st = u & 1;
+    if (u + 1 < n_units) prefetch(first + u + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();  // tile u landed for every thread
+    // y = x * a + b rounded to x's dtype, 0 outside the image (f32 in
+    // place; bf16 into the f32 window), and for bf16 g to f32
+    {
+      int b, r0, cc0;
+      tile_origin(first + u, b, r0, cc0);
+      const T* win = reinterpret_cast<const T*>(smem + st * L.stage + L.win);
+      float* y = reinterpret_cast<float*>(smem + (F32 ? st * L.stage + L.win : L.ywin));
+      for (int e = tid; e < DK_WPIX * CG; e += DK_THREADS) {
+        const int wp = e / CG;
+        const int cg = (e - wp * CG) * 4;
+        if (cg >= kc) continue;
+        const int wr = wp / (TW + 2);
+        const int r = r0 - 1 + wr;
+        const int c = cc0 - 1 + wp - wr * (TW + 2);
+        const bool inside = r >= 0 && r < H && c >= 0 && c < W;
+        // the group's 4 values in one load (16 bytes of f32, 8 of bf16)
+        float xv[4];
+        if constexpr (F32) {
+          const float4 q4 = *reinterpret_cast<const float4*>(win + wp * DK_YP + cg);
+          xv[0] = q4.x;
+          xv[1] = q4.y;
+          xv[2] = q4.z;
+          xv[3] = q4.w;
+        } else {
+          const uint2 q2 = *reinterpret_cast<const uint2*>(win + wp * DK_YP + cg);
+          xv[0] = __uint_as_float(q2.x << 16);
+          xv[1] = __uint_as_float(q2.x & 0xffff0000u);
+          xv[2] = __uint_as_float(q2.y << 16);
+          xv[3] = __uint_as_float(q2.y & 0xffff0000u);
+        }
+        const float4 a4 = *reinterpret_cast<const float4*>(s_a + cg);
+        const float4 b4 = *reinterpret_cast<const float4*>(s_b + cg);
+        const float av[4] = {a4.x, a4.y, a4.z, a4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          v[q] = inside && cg + q < kc ? Num<T>::round(fmaf(xv[q], av[q], bv[q])) : 0.f;
+        *reinterpret_cast<float4*>(y + wp * DK_YP + cg) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+      if constexpr (!F32) {
+        const T* gt = reinterpret_cast<const T*>(smem + st * L.stage + L.gt);
+        float* yg = reinterpret_cast<float*>(smem + L.yg);
+        for (int e = tid; e < TH * TW * DK_NC; e += DK_THREADS) {
+          const int tp = e / DK_NC;
+          const int ch = e - tp * DK_NC;
+          yg[tp * DK_GP + ch] = Num<T>::load(gt[tp * DK_GRAW + ch]);
+        }
+      }
+    }
+    __syncthreads();  // the f32 window and g tile are ready
+    const float* y = reinterpret_cast<const float*>(smem + (F32 ? st * L.stage + L.win : L.ywin));
+    const float* gs = reinterpret_cast<const float*>(smem + (F32 ? st * L.stage + L.gt : L.yg));
+    constexpr int STEPS = TH * TW / 16 / DK_WPT;  // 16-pixel steps of this warp's half
+#pragma unroll 2
+    for (int s = half * STEPS; s < (half + 1) * STEPS; ++s) {
+      const int pr = s / (TW / 16);
+      const int pc0 = (s - pr * (TW / 16)) * 16;
+      // the step's B fragments (g at its pixels t4, t4 + 4 of each 8)
+      uint32_t bh[2][2][2], bl[2][2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* gb = gs + (pr * TW + pc0 + 8 * h + t4) * DK_GP + gq;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float v0 = gb[nt * 8], v1 = gb[4 * DK_GP + nt * 8];
+          if constexpr (F32) {
+            split_tf32_cut(v0, bh[h][nt][0], bl[h][nt][0]);
+            split_tf32_cut(v1, bh[h][nt][1], bl[h][nt][1]);
+          } else {
+            bh[h][nt][0] = __float_as_uint(v0);
+            bh[h][nt][1] = __float_as_uint(v1);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < DK_MT; ++mt) {
+        // one 16-pixel step of m16 tile mt, summed from zero on the tensor cores
+        float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float* ya =
+              y + ((pr + ky) * (TW + 2) + pc0 + 8 * h + t4 + kx) * DK_YP + mt * 16 + gq;
+          const float v[4] = {ya[0], ya[8], ya[4 * DK_YP], ya[4 * DK_YP + 8]};
+          uint32_t ah[4], al[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if constexpr (F32) {
+              split_tf32_cut(v[q], ah[q], al[q]);
+            } else {
+              ah[q] = __float_as_uint(v[q]);
+            }
+          }
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            if constexpr (F32) {
+              mma_tf32(d[nt], al, bh[h][nt]);  // lo * hi
+              mma_tf32(d[nt], ah, bl[h][nt]);  // hi * lo
+            }
+            mma_tf32(d[nt], ah, bh[h][nt]);    // hi * hi (bf16: exact in TF32)
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mt][nt][q] += d[nt][q];
+      }
+    }
+    __syncthreads();  // everyone is done with stage st before it is refilled
   }
+
+  // the bottom half's sums through shared memory (the ring is free), added
+  // to the top half's: the same order in every run
+  float* red = reinterpret_cast<float*>(smem);
+  constexpr int ACC = DK_MT * 2 * 4;
+  if (half == 1) {
+#pragma unroll
+    for (int mt = 0; mt < DK_MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) red[((t * ACC) + (mt * 2 + nt) * 4 + q) * 32 + lane] = acc[mt][nt][q];
+  }
+  __syncthreads();
+  if (half == 1) return;
+  // the chunk's partial: rows (t, c0 + 16 mt + gq (+8)), columns o0 + 8 nt + 2 t4 (+1)
+  float* dst = partial + ((size_t)blockIdx.x * 9 + t) * Cin * Cout;
+#pragma unroll
+  for (int mt = 0; mt < DK_MT; ++mt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int ch = mt * 16 + gq + 8 * (q >> 1);
+      if (ch >= kc) continue;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int o = nt * 8 + 2 * t4 + (q & 1);
+        if (o < nc)
+          dst[(size_t)(c0 + ch) * Cout + o0 + o] =
+              acc[mt][nt][q] + red[((t * ACC) + (mt * 2 + nt) * 4 + q) * 32 + lane];
+      }
+    }
 }
 
 // dk[v] = sum over chunks of partial[chunk][v], in chunk order
@@ -872,13 +1119,20 @@ int dx(const void* g, const void* x, const void* a, const void* k, void* dxp, vo
 template <typename T>
 int dk(const void* x, const void* g, const void* a, const void* b, void* partial, void* dkp,
        int B, int H, int W, int Cin, int Cout, int tiles_per_chunk, int n_chunks, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || tiles_per_chunk < 1 || n_chunks < 1)
+  const long long n_tiles = (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || tiles_per_chunk < 1 || n_chunks < 1 ||
+      (long long)(n_chunks - 1) * tiles_per_chunk >= n_tiles ||
+      (long long)n_chunks * tiles_per_chunk < n_tiles || n_tiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(n_chunks, (Cin + CK - 1) / CK, (Cout + CO - 1) / CO);
-  dk_partial_kernel<T><<<grid, DK_THREADS, 0, st>>>((const T*)x, (const T*)g, (const float*)a,
-                                                    (const float*)b, (float*)partial, B, H, W,
-                                                    Cin, Cout, tiles_per_chunk);
+  const DkLayout L = dk_layout((int)sizeof(T));
+  const cudaError_t e =
+      cudaFuncSetAttribute(dk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(n_chunks, (Cin + DK_CB - 1) / DK_CB, (Cout + DK_NC - 1) / DK_NC);
+  dk_kernel<T><<<grid, DK_THREADS, L.bytes, st>>>((const T*)x, (const T*)g, (const float*)a,
+                                                  (const float*)b, (float*)partial, B, H, W, Cin,
+                                                  Cout, tiles_per_chunk);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int n_values = 9 * Cin * Cout;
@@ -923,7 +1177,8 @@ extern "C" int dense_conv_dx_bf16(const void* g, const void* x, const void* a, c
 }
 
 // B8: x (B,H,W,Cin), g (B,H,W,Cout) -> dk (3,3,Cin,Cout); partial is an f32
-// scratch of n_chunks * 9 * Cin * Cout, each chunk tiles_per_chunk 8x32 tiles.
+// scratch of n_chunks * 9 * Cin * Cout, chunk z the 8x32 tiles
+// [z tiles_per_chunk, +tiles_per_chunk) (the last may be shorter, none empty).
 extern "C" int dense_conv_dk_f32(const void* x, const void* g, const void* a, const void* b,
                                  void* partial, void* dk_out, int B, int H, int W, int Cin,
                                  int Cout, int tiles_per_chunk, int n_chunks, void* stream) {

@@ -3,7 +3,8 @@
 //
 // Replaces emlight_tpu/nn/sphere_conv_vjp.py::_dx_kernel_s1_umajor (the
 // Pallas TPU kernel B3, launched by _dx_pallas), which the port routes the
-// stride-1 maps of at least 2048 pixels to. The forward reads
+// stride-1 maps of at least UMAJOR_MIN_PIXELS (nn/sphere_conv_kernel.py) to.
+// The forward reads
 //
 //   out[i, j] += w(i,t,k,j) * x[rows[i,t,k], (j + s[i,t,k]) mod W] @ K_t
 //
@@ -37,23 +38,30 @@
 //   column: the circular shifts reach any) into shared memory, by cp.async
 //   in 16-byte chunks rotated across banks (by plain loads where Cout is
 //   not a multiple of the chunk: Cout = 3 rows are 12 bytes), one buffer
-//   filling while the 9 taps of the other are combined. Per K step (slab,
+//   filling while the 9 taps of the other are combined. Where two buffers
+//   of those rows do not fit in shared memory (W above 256: a 256x512 map
+//   from --crop_size 512), nothing is staged and each slot's chunk is read
+//   from device memory (L2) where it is combined. Per K step (slab,
 //   tap) a lane takes one 16-byte chunk of channels at two pixels and sums
 //   the pixel's slots of (row, tap) over it (whole-chunk reads; the dead
 //   column skipped, not multiplied: 0 * inf would poison dx); a 4 x 4
 //   transpose among the 4 lanes of a pixel (shuffles) leaves each lane the
 //   values its mma fragments hold, which go to a ring of 4 A tiles in a
 //   fragment-native layout (a lane's words of a fragment in one 16-byte
-//   slot), f32 split into TF32 hi and lo, bf16 rounded to nearest.
+//   slot), split into hi and lo: f32 into TF32 hi and lo, bf16 into bf16 hi
+//   (rounded to nearest) and lo, the bf16 of the rest, so the product sees
+//   Ĝ to about 2^-16 where one bf16 would round it to 2^-8 (the reference
+//   keeps U in f32).
 // - Warps 0-7 consume: per K step they bring the block's B tile of the
 //   next step into shared memory by cp.async (K_t^T pre-tiled once per
 //   call by dx_s1_kprep_kernel as the lanes' fragments, f32 split into
 //   TF32 hi and lo), wait for the A tile on its named barrier, and run
 //   mma.sync: f32 in 3xTF32 (v = hi + lo, hi cut to TF32, lo the exact
-//   rest; lo*hi + hi*lo + hi*hi), bf16 as bf16 x bf16,
-//   each 16-deep step (8-deep for f32 at BN = 256, which has no registers
-//   for more) summed from zero on the tensor cores and added in f32 on the
-//   CUDA cores (their chained f32 accumulation does not round to nearest).
+//   rest; lo*hi + hi*lo + hi*hi), bf16 as Ĝ lo x K + Ĝ hi x K (K is bf16
+//   already, so exact), each 16-deep step (8-deep for f32 at BN = 256,
+//   which has no registers for more) summed from zero on the tensor cores
+//   and added in f32 on the CUDA cores (their chained f32 accumulation does
+//   not round to nearest).
 // mma.sync and not wgmma for both dtypes: its fragments are plain register
 // loads, so the combined operand needs no core-matrix layout and ragged
 // edges (Cout, Cin and pixels off the tile) are masked where they are read.
@@ -99,7 +107,7 @@ struct Frag<float> {
 template <>
 struct Frag<__nv_bfloat16> {
   static constexpr int KSTEP = 16;
-  static constexpr int A_WORDS = 4;              // register r holds values 2r, 2r+1
+  static constexpr int A_WORDS = 8;              // hi, then lo; register r: values 2r, 2r+1
   static constexpr int B_VALS = 4, B_WORDS = 2;
   static __device__ __forceinline__ int b_k(int lane, int v) {
     return 2 * (lane & 3) + 8 * (v >> 1) + (v & 1);
@@ -279,10 +287,10 @@ dx_s1_kprep_kernel(const T* __restrict__ kmat, uint32_t* __restrict__ ktiles, in
 // B3. Grid: x = (m tile, n tile) with n fastest. Block (mt, nt) computes
 // dx for flat pixels [64 mt, +64) and input channels [BN nt, +BN). Warps
 // 0-7 consume (mma), warps 8-15 produce, in two groups of 4 that take
-// alternate K steps. Dynamic shared memory: a ring of NST A tiles, then two
-// buffers of rows_bytes for the staged g rows (flat rows [fr_lo, fr_hi],
-// PX_BYTES a pixel).
-template <typename T, int NF>
+// alternate K steps. Dynamic shared memory: a ring of NST A tiles, then,
+// if STAGED, two buffers of rows_bytes for the staged g rows (flat rows
+// [fr_lo, fr_hi], PX_BYTES a pixel); else the producers read g in place.
+template <typename T, int NF, bool STAGED>
 __global__ void __launch_bounds__(NTHREADS, 1)
 dx_s1_kernel(const T* __restrict__ g, const uint32_t* __restrict__ ktiles,
              const int4* __restrict__ slots, const int* __restrict__ counts,
@@ -411,7 +419,8 @@ dx_s1_kernel(const T* __restrict__ g, const uint32_t* __restrict__ ktiles,
                 mma_tf32(d, a[i], bf[f] + 2);  // hi * lo
                 mma_tf32(d, a[i], bf[f]);      // hi * hi
               } else {
-                mma_bf16(d, a[i], bf[f]);
+                mma_bf16(d, a[i] + 4, bf[f]);  // Ĝ lo * K
+                mma_bf16(d, a[i], bf[f]);      // Ĝ hi * K
               }
 #pragma unroll
               for (int r = 0; r < 4; ++r) acc[i][f][r] += d[r];
@@ -494,12 +503,28 @@ dx_s1_kernel(const T* __restrict__ g, const uint32_t* __restrict__ ktiles,
     cp_async_commit();
   };
 
-  load_rows(0, 0);
+  // chunk c4 of slab cs at pixel spx of the block's rows (flat pixel
+  // fr_lo * W + spx): from the staged buffer, or from g itself, 0 past Cout
+  auto chunk = [&](const unsigned char* rows, int cs, int spx) -> uint4 {
+    if constexpr (STAGED) {
+      return *reinterpret_cast<const uint4*>(rows + spx * PX_BYTES + row_slot(spx, c4) * 16);
+    } else {
+      const int ch0 = cs * L::OS + c4 * L::VEC;
+      const T* src = g + ((size_t)fr_lo * W + spx) * Cout + ch0;
+      if (g_vec) return ch0 < Cout ? __ldg(reinterpret_cast<const uint4*>(src)) : make_uint4(0, 0, 0, 0);
+      alignas(16) T v[L::VEC];
+#pragma unroll
+      for (int e = 0; e < L::VEC; ++e) v[e] = ch0 + e < Cout ? src[e] : T(0.f);
+      return *reinterpret_cast<const uint4*>(v);
+    }
+  };
+
+  if constexpr (STAGED) load_rows(0, 0);
   for (int s = pg; s < n_steps; s += 2) {
     const int cs = s / 9;
     const int t = s - cs * 9;
     const int k = s % NST;
-    if (t <= 1) {
+    if (STAGED && t <= 1) {
       // a new slab, entered by each group once: its rows landed (every
       // producer's copies), nobody reads the other buffer any more, so the
       // next slab's rows load into it while this slab's 9 taps run
@@ -533,7 +558,7 @@ dx_s1_kernel(const T* __restrict__ g, const uint32_t* __restrict__ ktiles,
         const bool use = m < n && j != e4.z;
         const int spx = use ? (img0 + e4.x) * W + j : 0;
         wt[m] = use ? __int_as_float(e4.w) : 0.f;
-        raw[m] = *reinterpret_cast<const uint4*>(rows + spx * PX_BYTES + row_slot(spx, c4) * 16);
+        raw[m] = chunk(rows, cs, spx);
       }
 #pragma unroll
       for (int m = 0; m < SLOT_BATCH; ++m) {
@@ -548,25 +573,32 @@ dx_s1_kernel(const T* __restrict__ g, const uint32_t* __restrict__ ktiles,
         int j = col - e4.y;
         if (j < 0) j += W;
         if (j == e4.z) continue;
-        const int spx = (img0 + e4.x) * W + j;
         float gv[L::VEC];
-        Vec<T>::unpack(
-            *reinterpret_cast<const uint4*>(rows + spx * PX_BYTES + row_slot(spx, c4) * 16), gv);
+        Vec<T>::unpack(chunk(rows, cs, (img0 + e4.x) * W + j), gv);
 #pragma unroll
         for (int v = 0; v < L::VEC; ++v)
           sum[h][v] = __fadd_rn(sum[h][v], __fmul_rn(__int_as_float(e4.w), gv[v]));
       }
     }
-    // 4 words per pixel (f32 values, or bf16 pairs rounded to nearest),
-    // transposed: lane c4 then holds word c4 of chunks 0..3
-    uint32_t wd[2][4];
+    // 4 words per pixel, hi and lo (f32: the values, split into TF32 hi and
+    // lo below; bf16: pairs of bf16 hi, rounded to nearest, and of the bf16
+    // of the rest), transposed: lane c4 then holds word c4 of chunks 0..3
+    uint32_t wd[2][4], wl[2][4];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wd[h][i] = F32 ? __float_as_uint(sum[h][i])
-                       : pack_bf16(sum[h][(2 * i) % L::VEC], sum[h][(2 * i + 1) % L::VEC]);
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (F32) {
+          wd[h][i] = __float_as_uint(sum[h][i]);
+        } else {
+          const float v0 = sum[h][2 * i], v1 = sum[h][2 * i + 1];
+          wd[h][i] = pack_bf16(v0, v1);
+          wl[h][i] = pack_bf16(v0 - __uint_as_float(wd[h][i] << 16),
+                               v1 - __uint_as_float(wd[h][i] & 0xffff0000u));
+        }
+      }
       transpose4(wd[h], c4);
+      if constexpr (!F32) transpose4(wl[h], c4);
     }
     uint32_t* slot = smem + k * L::A_STAGE;
 #pragma unroll
@@ -575,18 +607,23 @@ dx_s1_kernel(const T* __restrict__ g, const uint32_t* __restrict__ ktiles,
       uint32_t* dst = slot + (sub * MT + mt) * 32 * F::A_WORDS + lane * 4;
       const uint32_t q[4] = {wd[0][2 * sub], wd[1][2 * sub], wd[0][2 * sub + 1],
                              wd[1][2 * sub + 1]};
-      if constexpr (F32) {
-        uint32_t hi[4], lo[4];
+      uint32_t hi[4], lo[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float v = __uint_as_float(q[i]);
-          split_tf32(v, hi[i], lo[i]);
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (F32) {
+          split_tf32(__uint_as_float(q[i]), hi[i], lo[i]);
+        } else {
+          hi[i] = q[i];
         }
-        *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        *reinterpret_cast<uint4*>(dst + 128) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      } else {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(q[0], q[1], q[2], q[3]);
       }
+      if constexpr (!F32) {
+        lo[0] = wl[0][2 * sub];
+        lo[1] = wl[1][2 * sub];
+        lo[2] = wl[0][2 * sub + 1];
+        lo[3] = wl[1][2 * sub + 1];
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(dst + 128) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
     }
     bar_arrive(BAR_FULL + k, CONSUMERS + GROUP);
   }
@@ -603,26 +640,38 @@ inline long long rows_buffer_bytes(int B, int H, int W, int dmin, int dmax) {
   return (long long)(rows < B * H ? rows : B * H) * W * PX_BYTES;
 }
 
+template <typename T, int NF, bool STAGED>
+int launch_kernel(const void* g, const void* ktiles, const void* slots, const void* counts,
+                  void* dx, int B, int H, int W, int Cin, int Cout, int smax, int dmin, int dmax,
+                  long long rows_bytes, long long smem, long long blocks, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      dx_s1_kernel<T, NF, STAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dx_s1_kernel<T, NF, STAGED><<<(unsigned)blocks, NTHREADS, (int)smem, st>>>(
+      (const T*)g, (const uint32_t*)ktiles, (const int4*)slots, (const int*)counts, (float*)dx, B,
+      H, W, Cin, Cout, smax, dmin, dmax, (int)rows_bytes);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int NF>
 int launch_main(const void* g, const void* ktiles, const void* slots, const void* counts,
                 void* dx, int B, int H, int W, int Cin, int Cout, int smax, int dmin, int dmax,
                 cudaStream_t st) {
   using L = Layout<T>;
+  // the A ring and two B tiles (SUB * BN/8 n8 tiles of 32 lanes' B_WORDS
+  // words), then two rows buffers where they fit
+  const long long fixed = (long long)NST * L::A_STAGE * 4 +
+                          2LL * L::SUB * (32 * NF / 8) * 32 * Frag<T>::B_WORDS * 4;
   const long long rows_bytes = rows_buffer_bytes(B, H, W, dmin, dmax);
-  // the A ring, two B tiles (SUB * BN/8 n8 tiles of 32 lanes' B_WORDS
-  // words), two rows buffers
-  const long long smem = (long long)NST * L::A_STAGE * 4 +
-                         2LL * L::SUB * (32 * NF / 8) * 32 * Frag<T>::B_WORDS * 4 + 2 * rows_bytes;
+  const bool staged = fixed + 2 * rows_bytes <= SMEM_MAX;
+  const long long smem = fixed + (staged ? 2 * rows_bytes : 0);
   const long long blocks =
       (((long long)B * H * W + BM - 1) / BM) * ((Cin + 32 * NF - 1) / (32 * NF));
   if (blocks > 0x7fffffffLL || smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      dx_s1_kernel<T, NF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dx_s1_kernel<T, NF><<<(unsigned)blocks, NTHREADS, (int)smem, st>>>(
-      (const T*)g, (const uint32_t*)ktiles, (const int4*)slots, (const int*)counts, (float*)dx, B,
-      H, W, Cin, Cout, smax, dmin, dmax, (int)rows_bytes);
-  return (int)cudaGetLastError();
+  return staged ? launch_kernel<T, NF, true>(g, ktiles, slots, counts, dx, B, H, W, Cin, Cout,
+                                             smax, dmin, dmax, rows_bytes, smem, blocks, st)
+                : launch_kernel<T, NF, false>(g, ktiles, slots, counts, dx, B, H, W, Cin, Cout,
+                                              smax, dmin, dmax, 0, smem, blocks, st);
 }
 
 template <typename T>
@@ -664,8 +713,7 @@ int launch(const void* g, const void* kmat, void* ktiles, const void* slots, con
 // tap_grouped_tables, whose output rows lie in [r + dmin, r + dmax]; bn the
 // block width (256, 128, 64 or 32); dx (B,H,W,Cin) f32, every value
 // written. All contiguous on the device of `stream`. Returns the first
-// nonzero cudaGetLastError() of the two launches (cudaErrorInvalidValue
-// where the staged rows do not fit in shared memory: W above 256).
+// nonzero cudaGetLastError() of the two launches.
 extern "C" int sphere_conv_dx_s1_f32(const void* g, const void* kmat, void* ktiles,
                                      const void* slots, const void* counts, void* dx, int B,
                                      int H, int W, int Cin, int Cout, int bn, int smax, int dmin,

@@ -4,7 +4,7 @@ hand-written CUDA kernels of csrc/dense_conv.cu.
 - ``dense_conv_fwd`` B7,  conv3x3(x * a + b, K)
 - ``dense_conv_dx``  B7', dx = conv_T(g, K) * a and da, db (on the tensor
                      cores: mma.sync, f32 as 3xTF32)
-- ``dense_conv_dk``  B8,  dK
+- ``dense_conv_dk``  B8,  dK (on the tensor cores: mma.sync, f32 as 3xTF32)
 
 ``KERNELS`` maps each wrapper to its TPU kernel and source. A CPU tensor
 takes the plain version (nn/dense_conv.py); a CUDA tensor takes the kernel or
@@ -31,7 +31,8 @@ KERNELS = {
 }
 
 _TILE_H, _TILE_W = 8, 32      # the kernels' output tile (TH, TW)
-_DK_TARGET_BLOCKS = 528       # 4 blocks per SM of an H100's 132
+_DK_CIN, _DK_COUT = 48, 16    # B8's input and output channels per block
+_DK_BLOCKS = 132              # B8: one block per SM of an H100
 _DX_BLOCKS = 132              # B7': one persistent block per SM of an H100
 
 
@@ -140,11 +141,12 @@ def dx_blocks(b: int, h: int, w: int) -> int:
 
 
 def dk_chunks(n_tiles: int, cin: int, cout: int) -> tuple[int, int]:
-    """(tiles per chunk, chunk count) of B8's split of its 8x32 pixel tiles:
-    enough chunks that the (chunk, cin tile, cout tile) grid has about 4
-    blocks per SM."""
-    tiles = _cdiv(cin, 16) * _cdiv(cout, 12)
-    want = max(1, min(_cdiv(_DK_TARGET_BLOCKS, tiles), n_tiles))
+    """(tiles per chunk, chunk count) of B8's split of its 8x32 pixel tiles
+    into contiguous chunks: enough chunks that the (chunk, 48-channel cin
+    block, 16-channel cout block) grid has about one block per SM (each
+    holds 197 KB of shared memory), every chunk non-empty."""
+    tiles = _cdiv(cin, _DK_CIN) * _cdiv(cout, _DK_COUT)
+    want = max(1, min(_cdiv(_DK_BLOCKS, tiles), n_tiles))
     per = _cdiv(n_tiles, want)
     return per, _cdiv(n_tiles, per)
 
@@ -155,9 +157,10 @@ def dense_conv_dk(x: torch.Tensor, g: torch.Tensor, a: torch.Tensor,
     (B, H, W, Cin), affine a, b and cotangent g (B, H, W, Cout), x and g in
     one dtype.
 
-    CPU tensor: ``conv3x3_dk_plain``. CUDA tensor: per-chunk partials and
-    their sum in chunk order (two launches on the current stream), counted
-    once in ``dense_conv_dk.launches``.
+    CPU tensor: ``conv3x3_dk_plain``. CUDA tensor: ``dk_chunks``' per-chunk
+    partials (an implicit GEMM on the tensor cores) and their sum in chunk
+    order (two launches on the current stream), counted once in
+    ``dense_conv_dk.launches``.
     """
     if not on_cuda(x, "dense_conv_dk"):
         from .dense_conv import conv3x3_dk_plain

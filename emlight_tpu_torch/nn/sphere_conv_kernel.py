@@ -20,10 +20,11 @@ the gnomonic sampling pattern, verified here when the tables are built:
 - the bilinear weight is one scalar w0(i, t, k) for every column except at
   most one column jdev(i, t, k) where grid_sample's zero pad kills it.
 On an H100 every one of them is bound by operations at the model's widths;
-each computes its matmul in the kernel itself: B1 (wgmma), B3 and B4
+each computes its matmul in the kernel itself: B1 (wgmma), B3, B4 and B6
 (mma.sync) on the tensor cores, f32 as 3xTF32; the others in f32 on the
 CUDA cores. See each .cu file's header for the design; ``s1_plan`` is B1's
-tiling and K split, ``dk_plan`` B4's grid and pixel split.
+tiling and K split, ``dk_plan`` B4's grid and pixel split, ``triple_tiles``
+B6's GEMM tiles and K split.
 
 A CPU tensor takes the plain version (nn/sphere_conv.py::sphere_conv_plain,
 nn/sphere_conv_vjp.py::dx_plain and dk_plain); a CUDA tensor takes the
@@ -43,7 +44,8 @@ from .sphere_conv import sphere_conv_plain, sphere_taps
 
 __all__ = ["structured_tables", "scalar_weight_tables", "sphere_conv_s1", "sphere_conv_s2",
            "sphere_conv_dx", "sphere_conv_dx_s1", "sphere_conv_dx_s1_triple", "sphere_conv_dx_s2",
-           "sphere_conv_dk", "triple_tiles", "s1_plan", "S1Plan", "dk_plan", "DKPlan",
+           "sphere_conv_dk", "triple_tiles", "TriplePlan", "s1_plan", "S1Plan", "dk_plan",
+           "DKPlan",
            "tc_width", "KERNELS", "UMAJOR_MIN_PIXELS"]
 
 # wrapper name -> (TPU kernel id, source in the repo, file:line of the TPU kernel)
@@ -361,29 +363,25 @@ def tc_width(n: int) -> int:
     return min(_TC_WIDTHS, key=lambda bn: (_cdiv(n, bn) * bn, -bn))
 
 
-_DX_S1_MAX_W = 256  # B3 stages whole g rows of a tile in shared memory
-
-
 def sphere_conv_dx_s1(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.Tensor:
     """dx (B, H, W, Cin) f32 of a stride-1 sphere conv from its cotangent g
-    (B, H, W, Cout) and kernel (3, 3, Cin, Cout), both in one dtype. W at
-    most 256.
+    (B, H, W, Cout) and kernel (3, 3, Cin, Cout), both in one dtype.
 
     CPU tensor: ``dx_plain``. CUDA tensor: on the current stream, the K_t
     tiling and the kernel over ``tap_grouped_tables`` (Σ_t Ĝ_t K_tᵀ on the
-    tensor cores, no U), counted once in ``sphere_conv_dx_s1.launches``.
+    tensor cores, no U; the g rows a tile reads staged in shared memory
+    where they fit, read from device memory above W = 256), counted once in
+    ``sphere_conv_dx_s1.launches``.
     """
     if not on_cuda(g, "sphere_conv_dx_s1"):
         from .sphere_conv_vjp import dx_plain
 
         return dx_plain(g, kernel, x_shape, 1)
     b, h, w, cin, cout = _check_dx(g, kernel, x_shape, 1)
-    if w > _DX_S1_MAX_W:
-        raise ValueError(f"sphere_conv_dx_s1 takes W <= {_DX_S1_MAX_W}, got {w}")
     slots, counts, smax, dmin, dmax = _device_tap_tables(h, w, str(g.device))
     # K_t as the kernel's B fragments: per K step (64 bytes of Cout channels,
     # one tap) and 8 input channels, 256 words in f32 (TF32 hi and lo), 128
-    # in bf16
+    # in bf16 (its A fragments hold Ĝ's bf16 hi and lo)
     f32 = g.dtype == torch.float32
     n_steps = 9 * _cdiv(cout, 16 if f32 else 32)
     ktiles = torch.empty(n_steps * _cdiv(cin, 8) * (256 if f32 else 128), dtype=torch.int32,
@@ -402,14 +400,12 @@ def sphere_conv_dx_s1(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.T
 
 def sphere_conv_dx_s1_triple(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.Tensor:
     """dx (B, H, W, Cin) f32 of a stride-1 sphere conv, as ``sphere_conv_dx_s1``,
-    by the per-triple kernel: no U scratch in device memory; the row
-    u = g[out_row] @ K_tᵀ is recomputed in the block of each input row that
-    reads it, once per run of ``inverse_tables`` slots sharing (out_row, tap).
-    W at most 128.
+    by the small-map kernel B6: U = g K_tᵀ for every tap as one GEMM on the
+    tensor cores (M = pixels, N = 9 * Cin, K = Cout; f32 U, in ``triple_tiles``'
+    K splits), then the gather over ``inverse_tables`` in slot order.
 
-    CPU tensor: ``dx_plain``. CUDA tensor: the kernel and, when cout is split
-    (``triple_tiles``), the fixed-order sum of the splits' partial dx (one or
-    two launches on the current stream), counted once in
+    CPU tensor: ``dx_plain``. CUDA tensor: the GEMM and the gather (two
+    launches on the current stream), counted once in
     ``sphere_conv_dx_s1_triple.launches``.
     """
     if not on_cuda(g, "sphere_conv_dx_s1_triple"):
@@ -417,18 +413,15 @@ def sphere_conv_dx_s1_triple(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> 
 
         return dx_plain(g, kernel, x_shape, 1)
     b, h, w, cin, cout = _check_dx(g, kernel, x_shape, 1)
-    if w > _TRIPLE_MAX_W:
-        raise ValueError(f"sphere_conv_dx_s1_triple takes W <= {_TRIPLE_MAX_W}, got {w}")
     (orow, tap, shift, w0, jdev), fanin = _device_inverse_tables(h, w, 1, str(g.device))
-    bb, ct, n_split = triple_tiles(b, h, w, cin, cout)
+    plan = triple_tiles(b, h, w, cin, cout)
+    u = torch.empty(plan.n_split, b * h * w, 9 * cin, dtype=torch.float32, device=g.device)
     dx = torch.empty(b, h, w, cin, dtype=torch.float32, device=g.device)
-    partial = (torch.empty(n_split, b, h, w, cin, dtype=torch.float32, device=g.device)
-               if n_split > 1 else dx)
     with torch.cuda.device(g.device):
-        rc = entry("sphere_conv_dx_triple", "sphere_conv_dx_triple", g.dtype, 9, 9)(
+        rc = entry("sphere_conv_dx_triple", "sphere_conv_dx_triple", g.dtype, 9, 8)(
             g.data_ptr(), kernel.data_ptr(), orow.data_ptr(), tap.data_ptr(), shift.data_ptr(),
-            w0.data_ptr(), jdev.data_ptr(), partial.data_ptr(), dx.data_ptr(), b, h, w, cin,
-            cout, fanin, bb, ct, n_split, torch.cuda.current_stream(g.device).cuda_stream,
+            w0.data_ptr(), jdev.data_ptr(), u.data_ptr(), dx.data_ptr(), b, h, w, cin, cout,
+            fanin, plan.per, plan.n_split, torch.cuda.current_stream(g.device).cuda_stream,
         )
     raise_on(rc, "sphere_conv_dx_s1_triple", f"g {tuple(g.shape)} {g.dtype}, cin {cin}")
     sphere_conv_dx_s1_triple.launches += 1
@@ -463,29 +456,50 @@ def sphere_conv_dx_s2(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.T
     return dx
 
 
-_TRIPLE_ROWS = 64            # rows of u (images x W) per B6 block
+class TriplePlan(NamedTuple):
+    """B6's GEMM grid: tiles_m blocks of bm flat pixels times tiles_n of bn
+    rows of N = 9 * Cin (tap-major: kmat's (9, Cin) rows), and K = Cout cut
+    into n_split ranges of `per` channels, a whole number of bk-channel
+    stages (the last range may be shorter), each summed into its own U
+    partial."""
+    bm: int
+    bn: int
+    bk: int
+    tiles_m: int
+    tiles_n: int
+    per: int
+    n_split: int
+
+
+_TRIPLE_BM, _TRIPLE_BN, _TRIPLE_BK = 64, 128, 32  # the GEMM kernel's BM, BN and BK
 _TRIPLE_TARGET_BLOCKS = 264  # 2 blocks per SM of an H100's 132
 
 
-def triple_tiles(b: int, h: int, w: int, cin: int, cout: int) -> tuple[int, int, int]:
-    """(images per block, cin tile, cout splits) of B6's grid: about 64 rows
-    of u per block, 4 x 4 values per thread in at most 256 threads and a cin
-    tile of at most 64, then cout split in whole 32-wide slabs until the grid
-    has about 2 blocks per SM."""
-    bb = min(b, max(1, _TRIPLE_ROWS // w))
-    row_groups = _cdiv(bb * w, 4)
-    ct = min(64, (256 // row_groups) * 4, _cdiv(cin, 4) * 4)
-    blocks = h * _cdiv(b, bb) * _cdiv(cin, ct)
-    slabs = _cdiv(cout, 32)
-    per = _cdiv(slabs, max(1, min(slabs, _cdiv(_TRIPLE_TARGET_BLOCKS, blocks))))
-    return bb, ct, _cdiv(slabs, per)
+def triple_tiles(b: int, h: int, w: int, cin: int, cout: int) -> TriplePlan:
+    """B6's GEMM grid for g (b, h, w, cout) and dx (b, h, w, cin): 64-pixel
+    tiles over the flat b*h*w pixels, 128-row tiles over the 9 * cin rows of
+    N, and, where those give fewer than about 2 x 132 blocks (the 128 ->
+    2048 convs on the 4x8 and 8x16 maps), K cut into enough ranges of whole
+    32-channel stages to reach that."""
+    tiles_m, tiles_n = _cdiv(b * h * w, _TRIPLE_BM), _cdiv(9 * cin, _TRIPLE_BN)
+    stages = _cdiv(cout, _TRIPLE_BK)
+    want = 1
+    if tiles_m * tiles_n < _TRIPLE_TARGET_BLOCKS:
+        want = min(stages, _cdiv(_TRIPLE_TARGET_BLOCKS, tiles_m * tiles_n))
+    per = max(1, stages // want) * _TRIPLE_BK
+    return TriplePlan(_TRIPLE_BM, _TRIPLE_BN, _TRIPLE_BK, tiles_m, tiles_n, per,
+                      _cdiv(cout, per))
 
 
-# stride-1 dx of a map below this many pixels takes the per-triple kernel B6,
-# at or above it B3, as the JAX package routes it
-# (emlight_tpu/nn/sphere_conv_vjp.py:290 _UMAJOR_MIN_PIXELS)
-UMAJOR_MIN_PIXELS = 2048
-_TRIPLE_MAX_W = 128  # B6 holds a whole row of g per block
+# stride-1 dx of a map below this many pixels takes B6, at or above it B3.
+# The JAX package's gate is 2048 (emlight_tpu/nn/sphere_conv_vjp.py:290
+# _UMAJOR_MIN_PIXELS), set by the TPU's VMEM and loop cost; the port's is
+# set by the two kernels' times on the card (chip_smoke.py, "stride-1 dx by
+# map"; PERF.md): B6 is the faster from 4x8 to 64x128, by 13 % and more;
+# at 128x256 it is ahead by 3 % but forms a U of B*H*W*9*Cin f32 (1.2 GB at
+# batch 8 and Cin 128) where B3 forms none, so that map and larger ones
+# (256x512 with --crop_size 512) take B3
+UMAJOR_MIN_PIXELS = 32768
 
 
 def sphere_conv_dx(g: torch.Tensor, kernel: torch.Tensor, x_shape, stride: int) -> torch.Tensor:
@@ -493,8 +507,7 @@ def sphere_conv_dx(g: torch.Tensor, kernel: torch.Tensor, x_shape, stride: int) 
     (B6) below UMAJOR_MIN_PIXELS pixels, else ``sphere_conv_dx_s1`` (B3); at
     stride 2 ``sphere_conv_dx_s2`` (B5)."""
     if stride == 1:
-        h, w = int(x_shape[1]), int(x_shape[2])
-        if h * w < UMAJOR_MIN_PIXELS and w <= _TRIPLE_MAX_W:
+        if int(x_shape[1]) * int(x_shape[2]) < UMAJOR_MIN_PIXELS:
             return sphere_conv_dx_s1_triple(g, kernel, x_shape)
         return sphere_conv_dx_s1(g, kernel, x_shape)
     if stride == 2:

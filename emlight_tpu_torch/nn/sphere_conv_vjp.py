@@ -20,9 +20,9 @@ Two implementations of dx and dK:
 - ``dx_plain`` / ``dk_plain``: plain PyTorch (ports of ``_dx_gather_flat`` and
   ``_dk_gather``). They serve CPU tensors and are the oracles the CUDA
   kernels are checked against.
-- the CUDA kernels B3/B6/B5 (dx: stride 1 on maps of at least / below 2048
-  pixels, B3 by the tap regrouping; stride 2) and B4 (dK), through the
-  wrappers in
+- the CUDA kernels B3/B6/B5 (dx: stride 1 on maps of at least / below
+  ``UMAJOR_MIN_PIXELS``, B3 by the tap regrouping, B6 by a U GEMM and a
+  gather; stride 2) and B4 (dK), through the wrappers in
   ``nn/sphere_conv_kernel.py``.
 
 ``SphereConvFunction`` ties forward and backward together; the wrappers pick

@@ -140,7 +140,7 @@ def dx_emulated(g, k, x_shape):
 
 # whole maps, with the rows by the poles where the fan-in is largest; cin 3, cout 3
 # (a K of 27 in one slab), cout 24 (two slabs, the second ragged), and the
-# 2048-pixel map from which the routing takes B3
+# 2048-pixel map (B3's arithmetic; the card's routing gives this map to B6)
 DX_CASES = [((2, 8, 16, 8), 8), ((1, 16, 32, 3), 8), ((2, 16, 32, 16), 3),
             ((1, 8, 16, 5), 24), ((1, 32, 64, 4), 3)]
 

@@ -286,11 +286,13 @@ def test_function_backward_uses_the_kernels(card, stride):
 
 
 def test_function_backward_on_a_large_map_uses_b3_and_b4(card):
-    """A map of at least 2048 pixels: SphereConvFunction's backward launches
-    B3 for dx and B4 for dK, once each, and nothing else of the backward."""
-    x, k, bias = _inputs((2, 32, 64, 8), 12, card)
+    """A map of at least UMAJOR_MIN_PIXELS (128x256): SphereConvFunction's
+    backward launches B3 for dx and B4 for dK, once each, and nothing else
+    of the backward."""
+    assert 128 * 256 >= tker.UMAJOR_MIN_PIXELS
+    x, k, bias = _inputs((2, 128, 256, 8), 12, card)
     x, k, bias = (t.requires_grad_() for t in (x, k, bias))
-    tgt = torch.rand(2, 32, 64, 12, device=card)
+    tgt = torch.rand(2, 128, 256, 12, device=card)
     counters = (tker.sphere_conv_s1, tker.sphere_conv_dx_s1, tker.sphere_conv_dk,
                 tker.sphere_conv_dx_s1_triple, tker.sphere_conv_dx_s2)
     before = [c.launches for c in counters]
@@ -316,8 +318,8 @@ def test_grad_wrappers_reject_what_the_kernels_do_not_take(card):
         tker.sphere_conv_s2(x[:, :7], k[:, :, :8], None)
 
 
-# B3 and B6 each at every stride-1 gradient shape either can take (B6 holds
-# rows of at most 128 columns), whichever of the two the routing picks
+# B3 and B6 each at every stride-1 gradient shape, whichever of the two the
+# routing picks
 S1_SHAPES = [sc for sc in GRAD_SHAPES if sc[2] == 1]
 
 
@@ -328,15 +330,76 @@ def test_dx_b3_and_b6_match_plain(card, dtype, shape, cout, stride):
     dt = getattr(torch, dtype)
     g, k = g.to(dt), k.to(dt)
     ref = tvjp.dx_plain(g, k, tuple(x.shape), 1)
-    wrappers = [tker.sphere_conv_dx_s1]
-    if shape[2] <= 128:
-        wrappers.append(tker.sphere_conv_dx_s1_triple)
-    for fn in wrappers:
+    for fn in (tker.sphere_conv_dx_s1, tker.sphere_conv_dx_s1_triple):
         before = fn.launches
         dx = fn(g, k, tuple(x.shape))
         torch.cuda.synchronize()
         assert fn.launches == before + 1
         _close(dx, ref, dtype)
+
+
+# --crop_size 512's outer stride-1 convs (a 256x512 map: B3 reads its g
+# rows from device memory, two buffers of them do not fit in shared memory)
+WIDE_SHAPES = [((2, 256, 512, 64), 3), ((2, 256, 512, 128), 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout", WIDE_SHAPES)
+def test_dx_s1_takes_maps_wider_than_256(card, dtype, shape, cout):
+    x, k, g = _grad_inputs(shape, cout, 1, card, seed=7)
+    dt = getattr(torch, dtype)
+    g, k = g.to(dt), k.to(dt)
+    before = tker.sphere_conv_dx_s1.launches
+    dx = tker.sphere_conv_dx(g, k, tuple(x.shape), 1)
+    torch.cuda.synchronize()
+    assert tker.sphere_conv_dx_s1.launches == before + 1
+    _close(dx, tvjp.dx_plain(g, k, tuple(x.shape), 1), dtype)
+
+
+def test_dx_s1_bf16_keeps_the_regrouped_operand_to_f32(card):
+    """B3 splits Ĝ into bf16 hi + lo, so its bf16 dx tracks the plain
+    version (U in f32) far inside the 2e-2 bar: within 1e-3 of max|ref|,
+    where rounding Ĝ to one bf16 gave 2.2e-3."""
+    x, k, g = _grad_inputs((2, 64, 128, 128), 256, 1, card, seed=8)
+    g, k = g.bfloat16(), k.bfloat16()
+    dx = tker.sphere_conv_dx_s1(g, k, tuple(x.shape))
+    ref = tvjp.dx_plain(g, k, tuple(x.shape), 1)
+    assert (dx - ref).abs().max() <= 1e-3 * ref.abs().max()
+
+
+# every stride-1 dx shape of the training path on the small maps: the
+# generator's (mlp_gammabeta 128 -> 2C, conv_0, conv_1, conv_s) at the G
+# step's batch 8, the discriminator's at its batch 16; and ragged ones (cin
+# and cout off the 64 x 128 x 32 tiles, cout 3, W off the 64-pixel tile)
+B6_SHAPES = [((8, 4, 8, 128), 2048), ((8, 4, 8, 1024), 1024), ((8, 8, 16, 128), 2048),
+             ((8, 8, 16, 1024), 1024), ((8, 16, 32, 128), 2048), ((8, 16, 32, 128), 1024),
+             ((8, 16, 32, 1024), 512), ((8, 16, 32, 512), 512), ((16, 8, 16, 256), 512),
+             ((16, 8, 16, 512), 3), ((16, 16, 32, 256), 512), ((16, 16, 32, 512), 3),
+             ((3, 5, 7, 20), 70), ((1, 6, 10, 9), 5), ((2, 4, 8, 3), 3), ((1, 8, 12, 130), 33)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout", B6_SHAPES)
+def test_dx_triple_matches_plain(card, dtype, shape, cout):
+    x, k, g = _grad_inputs(shape, cout, 1, card, seed=9)
+    dt = getattr(torch, dtype)
+    g, k = g.to(dt), k.to(dt)
+    before = tker.sphere_conv_dx_s1_triple.launches
+    dx = tker.sphere_conv_dx_s1_triple(g, k, tuple(x.shape))
+    torch.cuda.synchronize()
+    assert tker.sphere_conv_dx_s1_triple.launches == before + 1
+    assert dx.dtype == torch.float32 and dx.shape == x.shape
+    _close(dx, tvjp.dx_plain(g, k, tuple(x.shape), 1), dtype)
+
+
+def test_dx_triple_is_deterministic(card):
+    """The 4x8 128 -> 2048 conv cuts K into U partials, summed in split
+    order by the gather: two runs, same bits."""
+    assert tker.triple_tiles(8, 4, 8, 128, 2048).n_split > 1
+    x, k, g = _grad_inputs((8, 4, 8, 128), 2048, 1, card, seed=10)
+    a = tker.sphere_conv_dx_s1_triple(g, k, tuple(x.shape))
+    b = tker.sphere_conv_dx_s1_triple(g, k, tuple(x.shape))
+    assert torch.equal(a, b)
 
 
 def test_dx_triple_skips_padded_slots(card):
@@ -398,6 +461,32 @@ def test_dense_conv_reductions_are_deterministic(card):
     first = (*tdk.dense_conv_dx(g, x, a, k)[1:], tdk.dense_conv_dk(x, g, a, b))
     second = (*tdk.dense_conv_dx(g, x, a, k)[1:], tdk.dense_conv_dk(x, g, a, b))
     assert all(torch.equal(p, q) for p, q in zip(first, second))
+
+
+# B8 where the dense layer's one block per (48-channel cin, 16-channel cout)
+# does not cover the widths: several cin and cout blocks, ragged both ways
+DK_RAGGED = [((2, 16, 40, 100), 20), ((2, 9, 33, 49), 17), ((1, 24, 64, 96), 32)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout", DK_RAGGED)
+def test_dense_dk_matches_plain_at_ragged_widths(card, dtype, shape, cout):
+    x, a, b, _, g = _dense_inputs(shape, cout, card, seed=4)
+    dt = getattr(torch, dtype)
+    x, g = x.to(dt), g.to(dt)
+    before = tdk.dense_conv_dk.launches
+    dk = tdk.dense_conv_dk(x, g, a, b)
+    torch.cuda.synchronize()
+    assert tdk.dense_conv_dk.launches == before + 1
+    _close(dk, tdc.conv3x3_dk_plain(x, g, a, b), dtype, rtol=1e-3)
+
+
+def test_dense_dk_is_deterministic_at_the_path_shape(card):
+    """B8 at the regression step's 96x128 shape, batch 16: 96 tiles of
+    chunks summed in chunk order; two runs, same bits."""
+    x, a, b, _, g = _dense_inputs((16, 96, 128, 48), 12, card, seed=5)
+    assert tdk.dk_chunks(16 * 12 * 4, 48, 12)[1] > 1
+    assert torch.equal(tdk.dense_conv_dk(x, g, a, b), tdk.dense_conv_dk(x, g, a, b))
 
 
 def test_fused_affine_conv_backward_uses_the_kernels(card):
