@@ -31,14 +31,17 @@ version. Phases, each of which raises on failure:
             G's BatchNorm statistics changed
 7. tcheck   every training kernel (B2 forward, B3/B6/B5 dx, B4 dK) vs its
             plain version at every distinct training shape, f32 and bf16, at
-            batch 2 and at the main path's batch (the timed inputs); B3 also
-            at --crop_size 512's 256x512 map (64 -> 3, 128 -> 64, batch 2)
+            batch 2 and at the main path's batch (the timed inputs); B3 and
+            B2 also at --crop_size 512's 256x512 map (B3: 64 -> 3, 128 -> 64;
+            B2: the front conv 6 -> 64; batch 2)
 8. ttiming  per-shape kernel vs plain version vs bounds and the cuDNN
-            yardstick of the same size (B1: the dense conv; B4:
-            conv2d_weight; B3 and B6: conv2d_input), and B3 against B6 at
+            yardstick of the same size (B1: the dense conv; B2: the dense
+            conv at stride 2; B4: conv2d_weight; B3 and B6: conv2d_input),
+            and B3 against B6 at
             every stride-1 dx shape; sums by kernel and by map;
-            the G step and the D step at batch 8; one profiled G step: idle
-            share, top device work
+            the G step and the D step at batch 8, with the caching
+            allocator's cudaMalloc / cudaFree calls, retries and syncs over
+            them; one profiled G step: idle share, top device work
 9. tcpu     one G step and one D step at batch 2 on a reduced config, card
             against the CPU plain path: losses, and every gradient leaf
             within a bar measured from the CPU's own spread under a jitter
@@ -49,7 +52,8 @@ version. Phases, each of which raises on failure:
 11. rcheck  B7, B7' (dx, da, db) and B8 vs their plain versions at the
             path's shapes at batch 2 and 16 and two ragged ones, f32 and bf16
 12. rtiming per shape: kernel, plain version, cuDNN call, bounds; the step at
-            batch 16; one profiled step: idle share, top device work
+            batch 16, with the allocator's calls over it (as in phase 8); one
+            profiled step: idle share, top device work
 13. rcpu    one train_step at batch 4 on a reduced config, card against the
             CPU plain path: losses and every gradient leaf (measured bar)
 14. kernels one JSON line with every ported kernel, each with its bound on
@@ -103,8 +107,10 @@ REG_BATCH, REG_STEPS, REG_FALL_STEPS = 16, 3, 10
 EXPECTED_REG_STEP = {"dense_conv_fwd": 48, "dense_conv_dx": 48, "dense_conv_dk": 48}
 REG_METRICS = {"loss", "dist_emloss", "dist_l2loss", "intensity_loss", "rgb_loss",
                "ambient_loss"}
-# --crop_size 512's outer stride-1 convs, whose dx B3 is held to at batch 2
+# --crop_size 512's outer stride-1 convs, whose dx B3 is held to at batch 2,
+# and its discriminator's front conv, which B2 is held to
 WIDE_DX_SHAPES = [(2, 256, 512, 64, 3, 1), (2, 256, 512, 128, 64, 1)]
+WIDE_S2_SHAPES = [(2, 256, 512, 6, 64, 2)]
 # card vs CPU gradients (phases 9 and 13): each leaf within the larger of GRAD_REL and
 # GRAD_SPREAD times the CPU's own spread, the change a JITTER-relative
 # perturbation of the batch makes to the CPU's gradients (see grad_ratios)
@@ -132,6 +138,21 @@ def cuda_ms(torch, fn, warmup: int = 2, iters: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# the caching allocator's calls that stall the host or the device: a
+# cudaMalloc or cudaFree, a retry after a failed allocation, a sync of all
+# streams (torch.cuda.memory_stats keys)
+ALLOC_EVENTS = ("num_device_alloc", "num_device_free", "num_alloc_retries",
+                "num_sync_all_streams")
+
+
+def allocator_events(torch, fn):
+    """fn()'s result and how often each of ALLOC_EVENTS happened while it ran."""
+    before = torch.cuda.memory_stats()
+    out = fn()
+    after = torch.cuda.memory_stats()
+    return out, {k: after.get(k, 0) - before.get(k, 0) for k in ALLOC_EVENTS}
 
 
 def device_profile(torch, fn, top: int = 8):
@@ -219,16 +240,17 @@ def dense_bound_ms(kind, b, h, w, cin, cout, dtype="float32", tc=False):
     return _bound(flops, nbytes, dtype, tc)
 
 
-def dense_conv_yardstick(torch, x, cout):
-    """cuDNN's dense 3x3 conv (SAME, channels_last, TF32 off as main sets it)
-    at the sphere conv's (B, H, W, Cin, Cout): a yardstick of what a library
-    conv of that size costs, not the same function."""
+def dense_conv_yardstick(torch, x, cout, stride=1):
+    """cuDNN's dense 3x3 conv (padding 1, channels_last, TF32 off as main
+    sets it) at the sphere conv's (B, H, W, Cin, Cout) and stride: a
+    yardstick of what a library conv of that size costs, not the same
+    function."""
     import torch.nn.functional as F
 
     x_cl = x.permute(0, 3, 1, 2)  # NHWC in memory: channels_last
     w_cl = torch.randn(cout, x.shape[3], 3, 3, device=x.device).contiguous(
         memory_format=torch.channels_last)
-    return lambda: F.conv2d(x_cl, w_cl, padding=1)
+    return lambda: F.conv2d(x_cl, w_cl, stride=stride, padding=1)
 
 
 def dense_grad_yardstick(torch, kind, x, g, stride):
@@ -432,6 +454,9 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
         check("sphere_conv_dx_s1", "dx", shape, kernel_inputs("dx", *shape))
     log(f"[tcheck] sphere_conv_dx_s1 at {WIDE_DX_SHAPES} (B, H, W, Cin, Cout, stride) matches "
         f"dx_plain in f32 and bf16")
+    for shape in WIDE_S2_SHAPES:
+        check("sphere_conv_s2", "fwd", shape, kernel_inputs("fwd", *shape))
+    log(f"[tcheck] sphere_conv_s2 at {WIDE_S2_SHAPES} matches sphere_conv_plain in f32 and bf16")
 
     # 8. timing at the main path's batch (and the batch-8 check on the timed inputs)
     rows = []
@@ -450,9 +475,9 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
                "bound_ms": bound, "bound_by": bound_by,
                "tc_bound_ms": kernel_bound_ms(kind, b, h, w, cin, cout, stride, "float32",
                                               fanin, tc=True)[0]}
-        if name == "sphere_conv_s1":
+        if kind == "fwd":
             row["dense_conv_yardstick_ms"] = cuda_ms(
-                torch, dense_conv_yardstick(torch, inputs[0], cout), warmup=1, iters=5)
+                torch, dense_conv_yardstick(torch, inputs[0], cout, stride), warmup=1, iters=5)
         elif kind == "dk" or (kind == "dx" and stride == 1):
             row["dense_conv_yardstick_ms"] = cuda_ms(
                 torch, dense_grad_yardstick(torch, kind, inputs[0], inputs[3], stride),
@@ -487,10 +512,11 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
         f"{n} f32 max|err| {worst[n]['float32']:.3e}, bf16 {worst[n]['bf16_rel']:.3e} of max|ref|"
         for n in names))
 
-    step_ms = {}
+    step_ms, step_alloc = {}, {}
     for what, fn in (("G", lambda: TP.generator_step(state, batches[0])),
                      ("D", lambda: TP.discriminator_step(state, batches[0]))):
-        step_ms[what] = cuda_ms(torch, fn, warmup=1, iters=5)
+        step_ms[what], step_alloc[what] = allocator_events(
+            torch, lambda: cuda_ms(torch, fn, warmup=1, iters=5))
     per_kernel = {}
     for n in names:
         sel = [r for r in rows if r["kernel"] == n]
@@ -503,7 +529,8 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
         per["bound_by"] = "operations" if ops >= per["bound_ms"] / 2 else "bytes"
         per_kernel[n] = per
     log(f"[ttiming] batch {BATCH}: generator_step {step_ms['G']:.3f} ms, discriminator_step "
-        f"{step_ms['D']:.3f} ms; per G+D step: " + "; ".join(
+        f"{step_ms['D']:.3f} ms; allocator events over the 6 timed steps of each: {step_alloc}; "
+        f"per G+D step: " + "; ".join(
             f"{n} kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f}, bound {v['bound_ms']:.3f}, "
             f"tc bound {v['tc_bound_ms']:.3f}"
             + (f", cuDNN yardstick {v['dense_conv_yardstick_ms']:.3f}"
@@ -538,6 +565,7 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
             f"{v['B3']:.3f} ms, B6 {v['B6']:.3f} ms; routed to {v['routed']}")
     tables["train_dx_s1_by_map"] = {f"{h}x{w}": v for (h, w), v in sorted(cross.items())}
     tables["train_steps_ms"] = step_ms
+    tables["train_steps_allocator"] = step_alloc
     tables["train_per_kernel"] = per_kernel
 
     prof = device_profile(torch, lambda: TP.generator_step(state, batches[0]), top=10)
@@ -813,13 +841,16 @@ def run_regression(torch, np, dev, seed: int, tables: dict, save) -> list:
         ops = sum(r["bound_ms"] * r["per_step"] for r in sel if r["bound_by"] == "operations")
         per["bound_by"] = "operations" if ops >= per["bound_ms"] / 2 else "bytes"
         per_kernel[n] = per
-    step_ms = cuda_ms(torch, lambda: TR.train_step(state, batches[0]), warmup=1, iters=5)
-    log(f"[rtiming] batch {REG_BATCH}: train_step {step_ms:.3f} ms; per step: " + "; ".join(
+    step_ms, step_alloc = allocator_events(
+        torch, lambda: cuda_ms(torch, lambda: TR.train_step(state, batches[0]), warmup=1, iters=5))
+    log(f"[rtiming] batch {REG_BATCH}: train_step {step_ms:.3f} ms (allocator events over its 6 "
+        f"timed steps: {step_alloc}); per step: " + "; ".join(
         f"{n} kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f}, cuDNN {v['library_ms']:.3f}, "
         f"bound {v['bound_ms']:.3f}, tc bound {v['tc_bound_ms']:.3f}"
         for n, v in per_kernel.items()))
     tables["regression_shapes"] = rows
     tables["regression_step_ms"] = step_ms
+    tables["regression_step_allocator"] = step_alloc
     tables["regression_per_kernel"] = per_kernel
     prof = device_profile(torch, lambda: TR.train_step(state, batches[0]), top=12)
     if prof is None:

@@ -16,24 +16,36 @@
 //
 // with t = 3 * ky + kx and off_t = (ky - 1, kx - 1). dA uses the ORIGINAL x.
 //
-// What bounds them on an H100. B7 on the f32 CUDA cores: operations. At the
-// model's widths (Cin 48, Cout 12) each does 2*9*Cin*Cout = 10368 flops per
-// pixel on 240 bytes (f32) of input and output, 43 flops a byte, above the
-// f32 CUDA cores' ridge of 20. B7' and B8 on the tensor cores: bytes (B7'
-// reads g and x and writes dx, 432 bytes a pixel in f32; B8 reads x and g,
-// 240 bytes; 3xTF32 lifts the operations' ceiling to 495/3 TFLOP/s). The
+// What bounds them on an H100: bytes, on the tensor cores. At the model's
+// widths (Cin 48, Cout 12) each does 2*9*Cin*Cout = 10368 flops per pixel;
+// B7 moves 240 bytes a pixel in f32 (reads x, writes out), B7' 432 (reads g
+// and x, writes dx), B8 240 (reads x and g): 24-43 flops a byte, below the
+// ridge of 3xTF32's 495/3 TFLOP/s against 3.35 TB/s (49 flops a byte). The
 // TPU kernel put the 9 taps on one MXU matmul against a 128-lane padded
 // operand; none of that carries over (no lane padding, no T matrix, no halo
 // DMA).
 //
-// conv_kernel<T> (B7): one block of 64 threads per tile of 8 x 32 output
-//   pixels and 12 output channels. For each slab of 16 input channels it
-//   stages the (8+2) x (32+2) window in shared memory, the affine applied on
-//   load and 0 written outside the image, beside the slab's 9 x 16 x 12
-//   kernel values. Each thread accumulates 4 pixels (columns tx, tx+8,
-//   tx+16, tx+24 of one row: neighbouring threads read neighbouring words) x
-//   12 channels in registers. Cin 48 and Cout 12 run unpadded; ragged widths
-//   and edges are masked.
+// fw_kernel<T> (B7): an implicit GEMM on mma.sync, M = the 256 pixels of an
+//   8 x 32 tile (warp w takes tile row w, two m16 fragments), N = 16 output
+//   channels (Cout 12 padded: two n8 fragments), K = 9 taps x a slab of up
+//   to 48 input channels (all of the dense layer's Cin, so x is read from
+//   device memory once). Persistent blocks walk the tiles with a two-stage
+//   cp.async ring, as B7' does: the next tile's (8+2) x (32+2) x window
+//   loads while the current one computes. The affine is applied to the
+//   staged window in place (affine_window, shared with B8), and A fragments
+//   are read from it by im2col addressing (pixel + the tap's offset); the
+//   kernel, staged once per block (transposed, and for f32 split), gives the
+//   B fragments (stage_kernel, shared with B7'). f32 multiplies in 3xTF32
+//   with the split made at fragment load (hi = v cut to TF32, lo the exact
+//   rest: lo*hi + hi*lo + hi*hi); each 16-deep K step is summed from zero on
+//   the tensor cores and the steps are added in f32 on the CUDA cores. bf16
+//   multiplies bf16 x bf16 exactly (m16n8k16), chained in f32 as B1 and B7'
+//   do. The f32 output tile is staged in shared memory and leaves in 16-byte
+//   stores of whole pixel rows, the real Cout channels only (store_tile,
+//   shared with B7'). The split is made at fragment load because a window
+//   split once per tile into TF32 hi and lo takes 141 KB at Cin 48, room for
+//   one stage and no ring; on the card that variant ran slower, and 16 warps
+//   (one m16 fragment each) no faster than 8.
 // dx_kernel<T> (B7'): an implicit GEMM on mma.sync, M = the 256 pixels of an
 //   8 x 32 tile, N = the forward's Cin (all 48 in one block: g is staged once
 //   per tile, with no zero slots), K = 9 taps x the forward's Cout (108).
@@ -83,18 +95,7 @@ namespace {
 
 constexpr int TH = 8;                 // output rows per tile
 constexpr int TW = 32;                // output columns per tile
-constexpr int PX = 4;                 // pixels per thread (conv)
-constexpr int NTX = TW / PX;          // threads along a tile row
-constexpr int NTHREADS = NTX * TH;    // 64 (conv)
-constexpr int CK = 16;                // input channels per staged slab
-constexpr int CO = 12;                // output channels per block
-constexpr int WR = TH + 2;            // window rows
-constexpr int WC = TW + 2;            // window columns
-constexpr int WP = 40;                // window row pitch: the 4 rows of a warp on disjoint banks
-constexpr int CP = WR * WP + 1;       // window channel pitch (odd: staging stores spread over banks)
 constexpr int RED_THREADS = 256;
-
-static_assert(CO % 4 == 0, "kernel rows are read as float4");
 
 template <typename T>
 struct Num;
@@ -112,100 +113,6 @@ struct Num<__nv_bfloat16> {
     return __bfloat162float(__float2bfloat16(v));
   }
 };
-
-// B7: in = x (B,H,W,Cin), kmat (9,Cin,Cout), out (B,H,W,Cout).
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-conv_kernel(const T* __restrict__ in, const T* __restrict__ kmat, const float* __restrict__ a,
-            const float* __restrict__ bvec, float* __restrict__ out, int H, int W, int Cin,
-            int Cout) {
-  __shared__ float y_s[CK * CP];
-  __shared__ __align__(16) float k_s[9 * CK * CO];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % NTX;
-  const int ty = tid / NTX;
-  const int n_og = (Cout + CO - 1) / CO;
-  const int b = blockIdx.z / n_og;
-  const int og = blockIdx.z - b * n_og;
-  const int r0 = blockIdx.y * TH;
-  const int c0 = blockIdx.x * TW;
-  const T* inb = in + (size_t)b * H * W * Cin;
-
-  float acc[PX][CO];
-#pragma unroll
-  for (int i = 0; i < PX; ++i)
-#pragma unroll
-    for (int o = 0; o < CO; ++o) acc[i][o] = 0.f;
-
-  for (int k0 = 0; k0 < Cin; k0 += CK) {
-    const int kc = min(CK, Cin - k0);
-    __syncthreads();
-    // the window, channel fastest so neighbouring threads read neighbouring values
-    for (int e = tid; e < WR * WC * CK; e += NTHREADS) {
-      const int c = e % CK;
-      const int pw = e / CK;
-      const int wr = pw / WC;
-      const int wc = pw - wr * WC;
-      const int gr = r0 - 1 + wr;
-      const int gc = c0 - 1 + wc;
-      float v = 0.f;
-      if (c < kc && gr >= 0 && gr < H && gc >= 0 && gc < W) {
-        v = Num<T>::load(inb[((size_t)gr * W + gc) * Cin + k0 + c]);
-        v = Num<T>::round(fmaf(v, a[k0 + c], bvec[k0 + c]));
-      }
-      y_s[c * CP + wr * WP + wc] = v;
-    }
-    for (int e = tid; e < 9 * CK * CO; e += NTHREADS) {
-      const int o = e % CO;
-      const int c = (e / CO) % CK;
-      const int t = e / (CO * CK);
-      const int oo = og * CO + o;
-      float v = 0.f;
-      if (c < kc && oo < Cout) v = Num<T>::load(kmat[((size_t)t * Cin + k0 + c) * Cout + oo]);
-      k_s[e] = v;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int c = 0; c < kc; ++c) {
-      const float* ys = y_s + c * CP + ty * WP + tx;
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx) {
-          const float4* kp = reinterpret_cast<const float4*>(k_s + ((ky * 3 + kx) * CK + c) * CO);
-          float kv[CO];
-#pragma unroll
-          for (int q = 0; q < CO / 4; ++q) {
-            const float4 k4 = kp[q];
-            kv[4 * q] = k4.x;
-            kv[4 * q + 1] = k4.y;
-            kv[4 * q + 2] = k4.z;
-            kv[4 * q + 3] = k4.w;
-          }
-#pragma unroll
-          for (int i = 0; i < PX; ++i) {
-            const float yv = ys[ky * WP + kx + NTX * i];
-#pragma unroll
-            for (int o = 0; o < CO; ++o) acc[i][o] = fmaf(yv, kv[o], acc[i][o]);
-          }
-        }
-    }
-  }
-
-  const int r = r0 + ty;
-#pragma unroll
-  for (int i = 0; i < PX; ++i) {
-    const int col = c0 + tx + NTX * i;
-    if (r >= H || col >= W) continue;
-    const size_t pix = ((size_t)b * H + r) * W + col;
-#pragma unroll
-    for (int o = 0; o < CO; ++o) {
-      const int oo = og * CO + o;
-      if (oo < Cout) out[pix * Cout + oo] = acc[i][o];
-    }
-  }
-}
 
 // sums[k][c] = sum over n of part[k][n][c], n in a fixed order: block (c, k)
 __global__ void __launch_bounds__(RED_THREADS)
@@ -227,61 +134,13 @@ reduce_kernel(const float* __restrict__ part, float* __restrict__ db, float* __r
 }
 
 // ---------------------------------------------------------------------------
-// B7' on the tensor cores: dy2 = sum_t g[q + off_t] K'_t as an implicit GEMM,
-// M = pixels of an 8x32 tile, N = the forward's Cin (48 per pass), K = 9 taps
-// x the forward's Cout (16 g channels per slab).
+// Tensor-core and cp.async helpers.
 // ---------------------------------------------------------------------------
-
-constexpr int DX_THREADS = 256;               // 8 warps; warp w computes tile row w
-constexpr int DX_NC = 48;                     // output channels per pass: 6 n8 fragments
-constexpr int DX_NF = DX_NC / 8;
-constexpr int DX_GS = 16;                     // g channels per staged slab
-constexpr int DX_WC = TW + 2;                 // window columns
-constexpr int DX_WPIX = (TH + 2) * DX_WC;     // 340 window pixels
-constexpr int DX_XP = DX_NC + 8;              // pitch of a pixel's x / dx row: float2
-                                              // accesses of a half warp on disjoint banks
-static_assert(TH * 32 == DX_THREADS, "one warp per tile row");
-static_assert(TW == 32, "a warp's two m16 fragments cover one tile row");
 
 __host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-// Dynamic shared memory of dx_kernel<T>, from the g channel count G and
-// sizeof(T); byte offsets, every region 16-byte aligned.
-struct DxLayout {
-  int gp;        // channels per tap of the first slab (K pitch and window pitch)
-  int kpad;      // 9 * gp rounded up to the mma depth (8 tf32, 16 bf16)
-  int kp;        // row pitch of the transposed kernel (bank-conflict-free B loads)
-  int kt_hi, kt_lo, koff, win, xt, dxs, red;
-  int win_stage, xt_stage, bytes;
-};
-
-__host__ __device__ inline DxLayout dx_layout(int G, int esize) {
-  DxLayout L;
-  const bool f32 = esize == 4;
-  const int gs = G < DX_GS ? G : DX_GS;
-  L.gp = f32 ? gs : round_up(gs, 2);
-  L.kpad = round_up(9 * L.gp, f32 ? 8 : 16);
-  L.kp = L.kpad + (f32 ? 4 : 8);
-  int o = 0;
-  L.kt_hi = o;
-  o += round_up(DX_NC * L.kp * esize, 16);
-  L.kt_lo = o;
-  if (f32) o += round_up(DX_NC * L.kp * 4, 16);
-  L.koff = o;
-  o += round_up(L.kpad * 4, 16);
-  L.win_stage = round_up(DX_WPIX * L.gp * esize, 16);
-  L.win = o;
-  o += 2 * L.win_stage;
-  L.xt_stage = round_up(TH * TW * DX_XP * esize, 16);
-  L.xt = o;
-  o += 2 * L.xt_stage;
-  L.dxs = o;  // f32: dx is written in place over the x tile
-  if (!f32) o += TH * TW * DX_XP * 4;
-  L.red = o;
-  o += 8 * 2 * DX_NC * 4;
-  L.bytes = o;
-  return L;
-}
+constexpr int WIN_C = TW + 2;               // window columns
+constexpr int WIN_PIX = (TH + 2) * WIN_C;   // 340 window pixels
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -334,6 +193,15 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
   lo = to_tf32(v - __uint_as_float(hi));
 }
 
+constexpr uint32_t TF32_MASK = 0xffffe000u;  // sign, exponent and TF32's 10 mantissa bits
+
+// hi = v cut to TF32's 10 mantissa bits, lo = v - hi (exact); the tensor
+// cores read lo's TF32 bits
+__device__ __forceinline__ void split_tf32_cut(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & TF32_MASK;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {
   asm volatile(
@@ -366,18 +234,26 @@ __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
   return __float2bfloat16(0.f);
 }
 
-// one unit of a block's work: (tile, 48-channel output pass, g slab)
-struct DxUnit {
+// ---------------------------------------------------------------------------
+// What B7, B7' and B8 share: the unit of a persistent block's work, the
+// staged window, the affine, the staged kernel and the output tile's store.
+// ---------------------------------------------------------------------------
+
+// one unit of a block's work: (tile, output pass, input slab)
+struct TileUnit {
   int b, r0, c0;   // image and tile origin
   int n0, nc;      // output channels [n0, n0 + nc)
-  int cs0, gs, gp; // g channels [cs0, cs0 + gs), per-tap pitch gp
+  int cs0, gs, gp; // input channels [cs0, cs0 + gs), per-tap pitch gp
   bool first, last;  // first / last slab of the pass
   bool first_tile;   // the block's first tile
 };
 
-__device__ __forceinline__ DxUnit dx_unit(int u, int per_tile, int n_slab, int ntx, int nty,
-                                          int N, int G, bool f32) {
-  DxUnit d;
+// unit u of block blockIdx.x, which walks tiles blockIdx.x + j gridDim.x;
+// per tile n_pass * n_slab units, passes of npass of the N output channels,
+// slabs of nslab of the G input channels
+__device__ __forceinline__ TileUnit tile_unit(int u, int per_tile, int n_slab, int ntx, int nty,
+                                              int N, int G, bool f32, int npass, int nslab) {
+  TileUnit d;
   const int j = u / per_tile;
   const int tile = blockIdx.x + j * gridDim.x;
   const int rem = u - j * per_tile;
@@ -387,10 +263,10 @@ __device__ __forceinline__ DxUnit dx_unit(int u, int per_tile, int n_slab, int n
   const int t2 = tile - d.b * nty * ntx;
   d.r0 = (t2 / ntx) * TH;
   d.c0 = (t2 % ntx) * TW;
-  d.n0 = pass * DX_NC;
-  d.nc = min(DX_NC, N - d.n0);
-  d.cs0 = slab * DX_GS;
-  d.gs = min(DX_GS, G - d.cs0);
+  d.n0 = pass * npass;
+  d.nc = min(npass, N - d.n0);
+  d.cs0 = slab * nslab;
+  d.gs = min(nslab, G - d.cs0);
   d.gp = f32 ? d.gs : round_up(d.gs, 2);
   d.first = slab == 0;
   d.last = slab == n_slab - 1;
@@ -398,43 +274,472 @@ __device__ __forceinline__ DxUnit dx_unit(int u, int per_tile, int n_slab, int n
   return d;
 }
 
-// the (TH+2) x (TW+2) window of g's slab, 0 outside the image, pixel pitch gp
+// The (TH+2) x (TW+2) window of channels [ch0, ch0 + nc) of src (B,H,W,C)
+// around the 8 x 32 tile at (b, r0, c0), pixel pitch `pitch` values, 0
+// outside the image: by cp.async in the widest chunks that divide every
+// offset; where none does, value by value, and channels [nc, fill) get 0.
 template <typename T>
-__device__ void dx_stage_window(T* win, const T* __restrict__ g, const DxUnit& d, int H, int W,
-                                int G) {
+__device__ void stage_window(T* win, int pitch, int fill, const T* __restrict__ src, int b,
+                             int r0, int c0, int H, int W, int C, int ch0, int nc, int nthreads) {
   constexpr int E = sizeof(T);
-  const int cb = d.gp == d.gs ? copy_bytes((d.gs * E) | (G * E) | (d.cs0 * E) | low_bits(g)) : 0;
+  const int cb = copy_bytes((nc * E) | (C * E) | (ch0 * E) | (pitch * E) | low_bits(src));
   if (cb) {
-    const int cpp = d.gs * E / cb;
-    for (int e = threadIdx.x; e < DX_WPIX * cpp; e += DX_THREADS) {
+    const int cpp = nc * E / cb;
+    for (int e = threadIdx.x; e < WIN_PIX * cpp; e += nthreads) {
       const int wp = e / cpp;
       const int part = e - wp * cpp;
-      const int wr = wp / DX_WC;
-      const int r = d.r0 - 1 + wr;
-      const int c = d.c0 - 1 + wp - wr * DX_WC;
+      const int wr = wp / WIN_C;
+      const int r = r0 - 1 + wr;
+      const int c = c0 - 1 + wp - wr * WIN_C;
       const bool ok = r >= 0 && r < H && c >= 0 && c < W;
-      const char* src = reinterpret_cast<const char*>(g);
-      if (ok) src += ((((size_t)d.b * H + r) * W + c) * G + d.cs0) * E + part * cb;
-      cp_async(reinterpret_cast<char*>(win) + ((size_t)wp * d.gp) * E + part * cb, src, cb, ok);
+      const char* s = reinterpret_cast<const char*>(src);
+      if (ok) s += ((((size_t)b * H + r) * W + c) * C + ch0) * E + part * cb;
+      cp_async(reinterpret_cast<char*>(win) + (size_t)wp * pitch * E + part * cb, s, cb, ok);
     }
   } else {
-    for (int e = threadIdx.x; e < DX_WPIX * d.gp; e += DX_THREADS) {
-      const int wp = e / d.gp;
-      const int ch = e - wp * d.gp;
-      const int wr = wp / DX_WC;
-      const int r = d.r0 - 1 + wr;
-      const int c = d.c0 - 1 + wp - wr * DX_WC;
+    for (int e = threadIdx.x; e < WIN_PIX * fill; e += nthreads) {
+      const int wp = e / fill;
+      const int ch = e - wp * fill;
+      const int wr = wp / WIN_C;
+      const int r = r0 - 1 + wr;
+      const int c = c0 - 1 + wp - wr * WIN_C;
       T v = zero_of<T>();
-      if (ch < d.gs && r >= 0 && r < H && c >= 0 && c < W)
-        v = g[(((size_t)d.b * H + r) * W + c) * G + d.cs0 + ch];
-      win[e] = v;
+      if (ch < nc && r >= 0 && r < H && c >= 0 && c < W)
+        v = src[(((size_t)b * H + r) * W + c) * C + ch0 + ch];
+      win[(size_t)wp * pitch + ch] = v;
     }
   }
 }
 
+// y = x * a + b rounded to x's dtype, 0 outside the image and at channels
+// [kc, 4 ceil(kc / 4)), over the window of the tile at (r0, c0): from the
+// staged x (pitch px values of T) into y (pitch py values of Y, float or T:
+// in place when y is the window), a group of 4 channels per thread and
+// iteration (16 bytes of f32, 8 of bf16); a, b per channel in shared memory
+template <typename T, typename Y>
+__device__ void affine_window(const T* win, int px, Y* y, int py, const float* s_a,
+                              const float* s_b, int kc, int r0, int c0, int H, int W,
+                              int nthreads) {
+  const int groups = (kc + 3) / 4;
+  for (int e = threadIdx.x; e < WIN_PIX * groups; e += nthreads) {
+    const int wp = e / groups;
+    const int cg = (e - wp * groups) * 4;
+    const int wr = wp / WIN_C;
+    const int r = r0 - 1 + wr;
+    const int c = c0 - 1 + wp - wr * WIN_C;
+    const bool inside = r >= 0 && r < H && c >= 0 && c < W;
+    float xv[4];
+    if constexpr (sizeof(T) == 4) {
+      const float4 q4 = *reinterpret_cast<const float4*>(win + wp * px + cg);
+      xv[0] = q4.x;
+      xv[1] = q4.y;
+      xv[2] = q4.z;
+      xv[3] = q4.w;
+    } else {
+      const uint2 q2 = *reinterpret_cast<const uint2*>(win + wp * px + cg);
+      xv[0] = __uint_as_float(q2.x << 16);
+      xv[1] = __uint_as_float(q2.x & 0xffff0000u);
+      xv[2] = __uint_as_float(q2.y << 16);
+      xv[3] = __uint_as_float(q2.y & 0xffff0000u);
+    }
+    const float4 a4 = *reinterpret_cast<const float4*>(s_a + cg);
+    const float4 b4 = *reinterpret_cast<const float4*>(s_b + cg);
+    const float av[4] = {a4.x, a4.y, a4.z, a4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      v[q] = inside && cg + q < kc ? Num<T>::round(fmaf(xv[q], av[q], bv[q])) : 0.f;
+    if constexpr (sizeof(Y) == 4) {
+      *reinterpret_cast<float4*>(y + wp * py + cg) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      // v holds bf16 values: exact
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+      *reinterpret_cast<uint2*>(y + wp * py + cg) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+    }
+  }
+}
+
+// where stage_kernel finds the kernel and puts its B fragments
+struct KStage {
+  long long st;      // kmat's stride between taps,
+  int sn, sc;        // output channels and input channels
+  bool reverse;      // tap 8 - t (B7', the tap-reversed kernel)
+  int n0, nc, nr;    // output channels [n0, n0 + nc), nr rows staged
+  int c0, kc, cp;    // input channels [c0, c0 + kc), per-tap K pitch cp
+  int kpad, kp, yp;  // K rows staged, row pitch, the window's pixel pitch
+};
+
+// The kernel as B fragments, transposed: kt[n * kp + k] for rows n < nr and
+// K rows k = t * cp + c < kpad, the value kmat[tap * st + (n0 + n) * sn +
+// (c0 + c) * sc] (tap t, or 8 - t if reverse), 0 past nc, kc and 9 * cp;
+// f32 as its TF32 hi part (kt_hi) and lo part (kt_lo), hi cut to TF32 (CUT)
+// or rounded to nearest. koff[k]: the window offset, at pixel pitch yp, of K
+// row k from a pixel's tap-(0, 0) slot.
+template <typename T, bool CUT>
+__device__ void stage_kernel(unsigned char* kt_hi, unsigned char* kt_lo, int* koff,
+                             const T* __restrict__ kmat, const KStage& s, int nthreads) {
+  const int kk_n = 9 * s.cp;
+  for (int e = threadIdx.x; e < s.nr * s.kpad; e += nthreads) {
+    const int n = e / s.kpad;
+    const int k = e - n * s.kpad;
+    T v = zero_of<T>();
+    if (n < s.nc && k < kk_n) {
+      const int t = k / s.cp;
+      const int c = k - t * s.cp;
+      if (c < s.kc)
+        v = kmat[(s.reverse ? 8 - t : t) * s.st + (size_t)(s.n0 + n) * s.sn +
+                 (size_t)(s.c0 + c) * s.sc];
+    }
+    if constexpr (sizeof(T) == 4) {
+      uint32_t hi, lo;
+      if constexpr (CUT)
+        split_tf32_cut(v, hi, lo);
+      else
+        split_tf32(v, hi, lo);
+      reinterpret_cast<uint32_t*>(kt_hi)[n * s.kp + k] = hi;
+      reinterpret_cast<uint32_t*>(kt_lo)[n * s.kp + k] = lo;
+    } else {
+      reinterpret_cast<T*>(kt_hi)[n * s.kp + k] = v;
+    }
+  }
+  for (int k = threadIdx.x; k < s.kpad; k += nthreads) {
+    int off = 0;
+    if (k < kk_n) {
+      const int t = k / s.cp;
+      off = ((t / 3) * WIN_C + t % 3) * s.yp + k - t * s.cp;
+    }
+    koff[k] = off;
+  }
+}
+
+// the f32 output tile (pixel tp of the 8 x 32 tile at tile[tp * pitch]) into
+// channels [n0, n0 + nc) of dst (B,H,W,C): whole pixel rows, neighbouring
+// threads on neighbouring 16 bytes where every offset allows
+__device__ void store_tile(float* __restrict__ dst, const float* tile, int pitch,
+                           const TileUnit& d, int H, int W, int C, int nthreads) {
+  const int cb = copy_bytes((d.nc * 4) | (C * 4) | (d.n0 * 4) | low_bits(dst));
+  if (cb == 16) {
+    const int cpp = d.nc / 4;
+    for (int e = threadIdx.x; e < TH * TW * cpp; e += nthreads) {
+      const int tp = e / cpp;
+      const int q = e - tp * cpp;
+      const int rr = d.r0 + tp / TW;
+      const int cc = d.c0 + tp % TW;
+      if (rr < H && cc < W)
+        *reinterpret_cast<float4*>(dst + (((size_t)d.b * H + rr) * W + cc) * C + d.n0 + 4 * q) =
+            *reinterpret_cast<const float4*>(tile + tp * pitch + 4 * q);
+    }
+  } else {
+    for (int e = threadIdx.x; e < TH * TW * d.nc; e += nthreads) {
+      const int tp = e / d.nc;
+      const int ch = e - tp * d.nc;
+      const int rr = d.r0 + tp / TW;
+      const int cc = d.c0 + tp % TW;
+      if (rr < H && cc < W) dst[(((size_t)d.b * H + rr) * W + cc) * C + d.n0 + ch] =
+          tile[tp * pitch + ch];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B7 on the tensor cores: out = sum_t y[p + off_t] K_t as an implicit GEMM,
+// M = pixels of an 8x32 tile, N = 16 output channels per pass, K = 9 taps x
+// a slab of up to 48 input channels.
+// ---------------------------------------------------------------------------
+
+constexpr int FW_THREADS = 256;  // 8 warps; warp w computes tile row w
+constexpr int FW_CB = 48;        // input channels per slab
+constexpr int FW_NC = 16;        // output channels per pass: 2 n8 fragments
+constexpr int FW_NF = FW_NC / 8;
+constexpr int FW_YP_F32 = 52;    // window pixel pitch, f32 words and bf16 values: a
+constexpr int FW_YP_BF16 = 56;   // fragment's 8 pixels x 4 words on 32 banks
+constexpr int FW_OP = 24;        // pitch of a pixel's staged output: float2 stores of
+                                 // a half warp on disjoint banks
+static_assert(TH * 32 == FW_THREADS, "one warp per tile row");
+
+// Dynamic shared memory of fw_kernel<T> for Cin input channels; byte
+// offsets, every region 16-byte aligned.
+struct FwLayout {
+  int kpad;  // 9 * (the first slab's per-tap K pitch), rounded up to a 16-deep step
+  int kp;    // row pitch of the transposed kernel (bank-conflict-free B loads)
+  int kt_hi, kt_lo, koff, win, win_stage, outs, bytes;
+};
+
+__host__ __device__ inline FwLayout fw_layout(int Cin, int esize) {
+  FwLayout L;
+  const bool f32 = esize == 4;
+  const int kc = Cin < FW_CB ? Cin : FW_CB;
+  L.kpad = round_up(9 * (f32 ? kc : round_up(kc, 2)), 16);
+  L.kp = L.kpad + (f32 ? 4 : 8);
+  int o = 0;
+  L.kt_hi = o;
+  o += round_up(FW_NC * L.kp * esize, 16);
+  L.kt_lo = o;
+  if (f32) o += round_up(FW_NC * L.kp * 4, 16);
+  L.koff = o;
+  o += round_up(L.kpad * 4, 16);
+  L.win_stage = round_up(WIN_PIX * (f32 ? FW_YP_F32 : FW_YP_BF16) * esize, 16);
+  L.win = o;
+  o += 2 * L.win_stage;
+  L.outs = o;
+  o += TH * TW * FW_OP * 4;
+  L.bytes = o;
+  return L;
+}
+
+// acc[mf][nf] (+)= A x K for tile row `warp`, pixels 16 mf + {gq, gq + 8}:
+// A read from the affine'd window at pixel + the K row's offset (koff)
+template <typename T>
+__device__ __forceinline__ void fw_mma(float (&acc)[2][FW_NF][4], const T* win,
+                                       const unsigned char* smem, const FwLayout& L,
+                                       const TileUnit& d, int warp, int gq, int t4) {
+  constexpr int YP = sizeof(T) == 4 ? FW_YP_F32 : FW_YP_BF16;
+  const int* koff = reinterpret_cast<const int*>(smem + L.koff);
+  const int kk_n = 9 * d.gp;
+  const int steps = (kk_n + 15) / 16;
+  const int base = (warp * WIN_C + gq) * YP;
+  if constexpr (sizeof(T) == 4) {
+    const uint32_t* kth = reinterpret_cast<const uint32_t*>(smem + L.kt_hi);
+    const uint32_t* ktl = reinterpret_cast<const uint32_t*>(smem + L.kt_lo);
+#pragma unroll 2
+    for (int s = 0; s < steps; ++s) {
+      // one 16-deep step, summed from zero on the tensor cores
+      float st[2][FW_NF][4];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < FW_NF; ++nf)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) st[mf][nf][q] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k0 = s * 16 + h * 8 + t4;
+        const int k1 = k0 + 4;
+        const bool v0 = k0 < kk_n;
+        const bool v1 = k1 < kk_n;
+        const int o0 = koff[k0];
+        const int o1 = koff[k1];
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf) {
+          const float* p = win + base + mf * 16 * YP;
+          split_tf32_cut(v0 ? p[o0] : 0.f, ah[mf][0], al[mf][0]);
+          split_tf32_cut(v0 ? p[8 * YP + o0] : 0.f, ah[mf][1], al[mf][1]);
+          split_tf32_cut(v1 ? p[o1] : 0.f, ah[mf][2], al[mf][2]);
+          split_tf32_cut(v1 ? p[8 * YP + o1] : 0.f, ah[mf][3], al[mf][3]);
+        }
+#pragma unroll
+        for (int nf = 0; nf < FW_NF; ++nf) {
+          const int row = (nf * 8 + gq) * L.kp;
+          const uint32_t bh[2] = {kth[row + k0], kth[row + k1]};
+          const uint32_t bl[2] = {ktl[row + k0], ktl[row + k1]};
+#pragma unroll
+          for (int mf = 0; mf < 2; ++mf) {
+            mma_tf32(st[mf][nf], al[mf], bh);  // lo * hi
+            mma_tf32(st[mf][nf], ah[mf], bl);  // hi * lo
+            mma_tf32(st[mf][nf], ah[mf], bh);  // hi * hi
+          }
+        }
+      }
+      // ... and added to the sums on the CUDA cores, rounded to nearest
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < FW_NF; ++nf)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mf][nf][q] += st[mf][nf][q];
+    }
+  } else {
+    const T* kt = reinterpret_cast<const T*>(smem + L.kt_hi);
+#pragma unroll 2
+    for (int s = 0; s < steps; ++s) {
+      const int k0 = s * 16 + 2 * t4;
+      const int k1 = k0 + 8;
+      const bool v0 = k0 < kk_n;
+      const bool v1 = k1 < kk_n;
+      const int o0 = koff[k0];
+      const int o1 = koff[k1];
+      uint32_t av[2][4];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) {
+        const T* p = win + base + mf * 16 * YP;
+        av[mf][0] = v0 ? ld_u32(p + o0) : 0u;
+        av[mf][1] = v0 ? ld_u32(p + 8 * YP + o0) : 0u;
+        av[mf][2] = v1 ? ld_u32(p + o1) : 0u;
+        av[mf][3] = v1 ? ld_u32(p + 8 * YP + o1) : 0u;
+      }
+#pragma unroll
+      for (int nf = 0; nf < FW_NF; ++nf) {
+        const int row = (nf * 8 + gq) * L.kp;
+        const uint32_t bv[2] = {ld_u32(kt + row + k0), ld_u32(kt + row + k1)};
+#pragma unroll
+        for (int mf = 0; mf < 2; ++mf) mma_bf16(acc[mf][nf], av[mf], bv);
+      }
+    }
+  }
+}
+
+// B7: out (B,H,W,Cout) f32 = conv3x3(y, kmat), y = x * a + b rounded to x's
+// dtype and 0 outside the image; x (B,H,W,Cin), kmat (3,3,Cin,Cout).
+//
+// Persistent: block j walks tiles j, j + gridDim.x, ...; per tile one unit
+// per (16-channel output pass, 48-channel input slab), one unit for the
+// dense layer's 48 -> 12. A ring of two stages: while a unit computes,
+// cp.async brings the next unit's x window. The kernel (transposed, and for
+// f32 split into TF32 hi and lo) and a, b are staged once per block when a
+// tile has one unit, else per unit.
+template <typename T>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+fw_kernel(const T* __restrict__ x, const T* __restrict__ kmat, const float* __restrict__ a,
+          const float* __restrict__ bvec, float* __restrict__ out, int B, int H, int W, int Cin,
+          int Cout) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ __align__(16) float s_a[FW_CB];
+  __shared__ __align__(16) float s_b[FW_CB];
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int YP = F32 ? FW_YP_F32 : FW_YP_BF16;
+  const FwLayout L = fw_layout(Cin, sizeof(T));
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gq = lane >> 2;
+  const int t4 = lane & 3;
+  const int ntx = (W + TW - 1) / TW;
+  const int nty = (H + TH - 1) / TH;
+  const int n_tiles = B * nty * ntx;
+  const int n_slab = (Cin + FW_CB - 1) / FW_CB;
+  const int per_tile = ((Cout + FW_NC - 1) / FW_NC) * n_slab;
+  const int n_units = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x * per_tile;
+  const bool one_kernel = per_tile == 1;
+  float* outs = reinterpret_cast<float*>(smem + L.outs);
+
+  auto unit = [&](int u) {
+    return tile_unit(u, per_tile, n_slab, ntx, nty, Cout, Cin, F32, FW_NC, FW_CB);
+  };
+  auto window = [&](int u) { return reinterpret_cast<T*>(smem + L.win + (u & 1) * L.win_stage); };
+  // the unit's kernel slab as B fragments, and its a, b
+  auto stage_unit = [&](const TileUnit& d) {
+    const KStage ks = {(long long)Cin * Cout, 1, Cout, false, d.n0, d.nc, FW_NC,
+                       d.cs0, d.gs, d.gp, L.kpad, L.kp, YP};
+    stage_kernel<T, true>(smem + L.kt_hi, smem + L.kt_lo, reinterpret_cast<int*>(smem + L.koff),
+                          kmat, ks, FW_THREADS);
+    if (tid < FW_CB) {
+      s_a[tid] = tid < d.gs ? a[d.cs0 + tid] : 0.f;
+      s_b[tid] = tid < d.gs ? bvec[d.cs0 + tid] : 0.f;
+    }
+  };
+  auto prefetch = [&](int u) {
+    const TileUnit d = unit(u);
+    stage_window(window(u), YP, d.gs, x, d.b, d.r0, d.c0, H, W, Cin, d.cs0, d.gs, FW_THREADS);
+  };
+
+  if (one_kernel) stage_unit(unit(0));
+  prefetch(0);
+  cp_async_commit();
+
+  float acc[2][FW_NF][4];
+  for (int u = 0; u < n_units; ++u) {
+    const TileUnit d = unit(u);
+    T* win = window(u);
+    if (u + 1 < n_units) prefetch(u + 1);
+    cp_async_commit();
+    if (!one_kernel) stage_unit(d);
+    cp_async_wait1();
+    __syncthreads();  // unit u's window, the kernel, a and b are in place
+    affine_window<T, T>(win, YP, win, YP, s_a, s_b, d.gs, d.r0, d.c0, H, W, FW_THREADS);
+    __syncthreads();  // y is in place
+    if (d.first) {
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < FW_NF; ++nf)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mf][nf][q] = 0.f;
+    }
+    fw_mma<T>(acc, win, smem, L, d, warp, gq, t4);
+    if (d.last) {
+      // the output tile from the fragment layout: this thread owns pixels
+      // 16 mf + 8 h + gq of tile row `warp` and channels 8 nf + 2 t4 + {0, 1}
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int nf = 0; nf < FW_NF; ++nf)
+            *reinterpret_cast<float2*>(outs + (warp * TW + mf * 16 + h * 8 + gq) * FW_OP +
+                                       nf * 8 + 2 * t4) =
+                make_float2(acc[mf][nf][2 * h], acc[mf][nf][2 * h + 1]);
+      __syncthreads();
+      store_tile(out, outs, FW_OP, d, H, W, Cout, FW_THREADS);
+    }
+    __syncthreads();  // everyone is done with stage u & 1 and the output tile
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B7' on the tensor cores: dy2 = sum_t g[q + off_t] K'_t as an implicit GEMM,
+// M = pixels of an 8x32 tile, N = the forward's Cin (48 per pass), K = 9 taps
+// x the forward's Cout (16 g channels per slab).
+// ---------------------------------------------------------------------------
+
+constexpr int DX_THREADS = 256;               // 8 warps; warp w computes tile row w
+constexpr int DX_NC = 48;                     // output channels per pass: 6 n8 fragments
+constexpr int DX_NF = DX_NC / 8;
+constexpr int DX_GS = 16;                     // g channels per staged slab
+constexpr int DX_XP = DX_NC + 8;              // pitch of a pixel's x / dx row: float2
+                                              // accesses of a half warp on disjoint banks
+static_assert(TH * 32 == DX_THREADS, "one warp per tile row");
+static_assert(TW == 32, "a warp's two m16 fragments cover one tile row");
+
+// Dynamic shared memory of dx_kernel<T>, from the g channel count G and
+// sizeof(T); byte offsets, every region 16-byte aligned.
+struct DxLayout {
+  int gp;        // channels per tap of the first slab (K pitch and window pitch)
+  int kpad;      // 9 * gp rounded up to the mma depth (8 tf32, 16 bf16)
+  int kp;        // row pitch of the transposed kernel (bank-conflict-free B loads)
+  int kt_hi, kt_lo, koff, win, xt, dxs, red;
+  int win_stage, xt_stage, bytes;
+};
+
+__host__ __device__ inline DxLayout dx_layout(int G, int esize) {
+  DxLayout L;
+  const bool f32 = esize == 4;
+  const int gs = G < DX_GS ? G : DX_GS;
+  L.gp = f32 ? gs : round_up(gs, 2);
+  L.kpad = round_up(9 * L.gp, f32 ? 8 : 16);
+  L.kp = L.kpad + (f32 ? 4 : 8);
+  int o = 0;
+  L.kt_hi = o;
+  o += round_up(DX_NC * L.kp * esize, 16);
+  L.kt_lo = o;
+  if (f32) o += round_up(DX_NC * L.kp * 4, 16);
+  L.koff = o;
+  o += round_up(L.kpad * 4, 16);
+  L.win_stage = round_up(WIN_PIX * L.gp * esize, 16);
+  L.win = o;
+  o += 2 * L.win_stage;
+  L.xt_stage = round_up(TH * TW * DX_XP * esize, 16);
+  L.xt = o;
+  o += 2 * L.xt_stage;
+  L.dxs = o;  // f32: dx is written in place over the x tile
+  if (!f32) o += TH * TW * DX_XP * 4;
+  L.red = o;
+  o += 8 * 2 * DX_NC * 4;
+  L.bytes = o;
+  return L;
+}
+
+// one unit of B7': (tile, 48-channel output pass, 16-channel g slab)
+__device__ __forceinline__ TileUnit dx_unit(int u, int per_tile, int n_slab, int ntx, int nty,
+                                            int N, int G, bool f32) {
+  return tile_unit(u, per_tile, n_slab, ntx, nty, N, G, f32, DX_NC, DX_GS);
+}
+
 // x's channels [n0, n0 + nc) at the tile's pixels, 0 outside the image
 template <typename T>
-__device__ void dx_stage_xtile(T* xt, const T* __restrict__ x, const DxUnit& d, int H, int W,
+__device__ void dx_stage_xtile(T* xt, const T* __restrict__ x, const TileUnit& d, int H, int W,
                                int N) {
   constexpr int E = sizeof(T);
   const int cb = copy_bytes((d.nc * E) | (N * E) | (d.n0 * E) | low_bits(x));
@@ -462,50 +767,26 @@ __device__ void dx_stage_xtile(T* xt, const T* __restrict__ x, const DxUnit& d, 
   }
 }
 
-// K'[k = t * gp + c][n] = K[8 - t][n0 + n][cs0 + c], stored transposed
-// (row n, k contiguous), 0 past nc, gs and 9 * gp; f32 as its TF32 hi and lo
-// parts. koff[k]: the window offset of K row k from a pixel's tap-(0, 0) slot.
+// K'[k = t * gp + c][n] = K[8 - t][n0 + n][cs0 + c] for kmat (3,3,N,G),
+// stored transposed (row n, k contiguous) with koff; f32 as its TF32 hi and
+// lo parts, rounded to nearest
 template <typename T>
 __device__ void dx_stage_kernel(unsigned char* smem, const DxLayout& L,
-                                const T* __restrict__ kmat, const DxUnit& d, int N, int G) {
-  const int kk_n = 9 * d.gp;
-  for (int e = threadIdx.x; e < DX_NC * L.kpad; e += DX_THREADS) {
-    const int n = e / L.kpad;
-    const int k = e - n * L.kpad;
-    T v = zero_of<T>();
-    if (n < d.nc && k < kk_n) {
-      const int t = k / d.gp;
-      const int c = k - t * d.gp;
-      if (c < d.gs) v = kmat[((size_t)(8 - t) * N + d.n0 + n) * G + d.cs0 + c];
-    }
-    if constexpr (sizeof(T) == 4) {
-      uint32_t hi, lo;
-      split_tf32(v, hi, lo);
-      reinterpret_cast<uint32_t*>(smem + L.kt_hi)[n * L.kp + k] = hi;
-      reinterpret_cast<uint32_t*>(smem + L.kt_lo)[n * L.kp + k] = lo;
-    } else {
-      reinterpret_cast<T*>(smem + L.kt_hi)[n * L.kp + k] = v;
-    }
-  }
-  int* koff = reinterpret_cast<int*>(smem + L.koff);
-  for (int k = threadIdx.x; k < L.kpad; k += DX_THREADS) {
-    int off = 0;
-    if (k < kk_n) {
-      const int t = k / d.gp;
-      off = ((t / 3) * DX_WC + t % 3) * d.gp + k - t * d.gp;
-    }
-    koff[k] = off;
-  }
+                                const T* __restrict__ kmat, const TileUnit& d, int N, int G) {
+  const KStage ks = {(long long)N * G, G, 1, true, d.n0, d.nc, DX_NC, d.cs0, d.gs, d.gp,
+                     L.kpad, L.kp, d.gp};
+  stage_kernel<T, false>(smem + L.kt_hi, smem + L.kt_lo, reinterpret_cast<int*>(smem + L.koff),
+                         kmat, ks, DX_THREADS);
 }
 
 // acc[mf][nf] += A (tile row `warp`, pixels 16 mf + {g, g + 8}) x K'
 template <typename T>
 __device__ __forceinline__ void dx_mma(float (&acc)[2][DX_NF][4], const T* win,
                                        const unsigned char* smem, const DxLayout& L,
-                                       const DxUnit& d, int warp, int gq, int t4) {
+                                       const TileUnit& d, int warp, int gq, int t4) {
   const int* koff = reinterpret_cast<const int*>(smem + L.koff);
   const int kk_n = 9 * d.gp;
-  const int base = (warp * DX_WC + gq) * d.gp;
+  const int base = (warp * WIN_C + gq) * d.gp;
   if constexpr (sizeof(T) == 4) {
     const uint32_t* kth = reinterpret_cast<const uint32_t*>(smem + L.kt_hi);
     const uint32_t* ktl = reinterpret_cast<const uint32_t*>(smem + L.kt_lo);
@@ -605,9 +886,9 @@ dx_kernel(const T* __restrict__ g, const T* __restrict__ kmat, const float* __re
   float* red = reinterpret_cast<float*>(smem + L.red);
 
   auto prefetch = [&](int u) {
-    const DxUnit d = dx_unit(u, per_tile, n_slab, ntx, nty, N, G, F32);
+    const TileUnit d = dx_unit(u, per_tile, n_slab, ntx, nty, N, G, F32);
     T* win = reinterpret_cast<T*>(smem + L.win + (u & 1) * L.win_stage);
-    dx_stage_window(win, g, d, H, W, G);
+    stage_window(win, d.gp, d.gp, g, d.b, d.r0, d.c0, H, W, G, d.cs0, d.gs, DX_THREADS);
     if (d.last) dx_stage_xtile(reinterpret_cast<T*>(smem + L.xt + (u & 1) * L.xt_stage), xorig, d,
                                H, W, N);
   };
@@ -619,7 +900,7 @@ dx_kernel(const T* __restrict__ g, const T* __restrict__ kmat, const float* __re
   float acc[2][DX_NF][4];
   for (int u = 0; u < n_units; ++u) {
     const int s = u & 1;
-    const DxUnit d = dx_unit(u, per_tile, n_slab, ntx, nty, N, G, F32);
+    const TileUnit d = dx_unit(u, per_tile, n_slab, ntx, nty, N, G, F32);
     if (u + 1 < n_units) prefetch(u + 1);
     cp_async_commit();
     if (!one_kernel) dx_stage_kernel(smem, L, kmat, d, N, G);
@@ -716,28 +997,7 @@ dx_kernel(const T* __restrict__ g, const T* __restrict__ kmat, const float* __re
       }
       __syncthreads();
       // dx in whole pixel rows: neighbouring threads, neighbouring 16 bytes
-      const int cb = copy_bytes((d.nc * 4) | (N * 4) | (d.n0 * 4) | low_bits(dx));
-      if (cb == 16) {
-        const int cpp = d.nc / 4;
-        for (int e = tid; e < TH * TW * cpp; e += DX_THREADS) {
-          const int tp = e / cpp;
-          const int q = e - tp * cpp;
-          const int rr = d.r0 + tp / TW;
-          const int cc = d.c0 + tp % TW;
-          if (rr < H && cc < W)
-            *reinterpret_cast<float4*>(dx + (((size_t)d.b * H + rr) * W + cc) * N + d.n0 + 4 * q) =
-                *reinterpret_cast<const float4*>(dxs + tp * DX_XP + 4 * q);
-        }
-      } else {
-        for (int e = tid; e < TH * TW * d.nc; e += DX_THREADS) {
-          const int tp = e / d.nc;
-          const int ch = e - tp * d.nc;
-          const int rr = d.r0 + tp / TW;
-          const int cc = d.c0 + tp % TW;
-          if (rr < H && cc < W) dx[(((size_t)d.b * H + rr) * W + cc) * N + d.n0 + ch] =
-              dxs[tp * DX_XP + ch];
-        }
-      }
+      store_tile(dx, dxs, DX_XP, d, H, W, N, DX_THREADS);
       // the block's running dB, dA: the warps' sums in warp order, added to
       // the block's previous tiles in tile order
       if (tid < 2 * DX_NC) {
@@ -765,21 +1025,11 @@ constexpr int DK_MT = DK_CB / 16;
 constexpr int DK_NC = 16;                    // output channels per block: 2 n8 tiles
 constexpr int DK_WPT = 2;                    // warps per tap, each half of a tile's rows
 constexpr int DK_THREADS = 9 * DK_WPT * 32;
-constexpr int DK_WPIX = (TH + 2) * (TW + 2); // 340 window pixels
 constexpr int DK_YP = 56;                    // window pixel pitch (f32 words, bf16 values):
                                              // a fragment's 4 pixels x 8 channels on 32 banks
 constexpr int DK_GP = 24;                    // f32 g pixel pitch, the same for 4 x 8
 constexpr int DK_GRAW = 16;                  // bf16 g pixel pitch as loaded
 static_assert(TW % 16 == 0, "a 16-pixel step lies in one tile row");
-
-constexpr uint32_t TF32_MASK = 0xffffe000u;  // sign, exponent and TF32's 10 mantissa bits
-
-// hi = v cut to TF32's 10 mantissa bits, lo = v - hi (exact); the tensor
-// cores read lo's TF32 bits
-__device__ __forceinline__ void split_tf32_cut(float v, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(v) & TF32_MASK;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
 
 // Dynamic shared memory of dk_kernel<T>, byte offsets, 16-byte aligned: a
 // ring of two stages of the x window and g tile as loaded (x's dtype), then,
@@ -795,11 +1045,11 @@ __host__ __device__ inline DkLayout dk_layout(int esize) {
   DkLayout L;
   const int gp = esize == 4 ? DK_GP : DK_GRAW;
   L.win = 0;
-  L.gt = round_up(DK_WPIX * DK_YP * esize, 16);
+  L.gt = round_up(WIN_PIX * DK_YP * esize, 16);
   L.stage = L.gt + round_up(TH * TW * gp * esize, 16);
   int o = 2 * L.stage;
   L.ywin = esize == 4 ? 0 : o;
-  if (esize != 4) o += DK_WPIX * DK_YP * 4;
+  if (esize != 4) o += WIN_PIX * DK_YP * 4;
   L.yg = esize == 4 ? L.gt : o;
   if (esize != 4) o += TH * TW * DK_GP * 4;
   L.bytes = o;
@@ -819,7 +1069,6 @@ dk_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restr
   constexpr bool F32 = sizeof(T) == 4;
   constexpr int E = sizeof(T);
   constexpr int GPR = F32 ? DK_GP : DK_GRAW;  // g pitch of the ring, in values
-  constexpr int CG = DK_CB / 4;               // 4-channel groups of a window pixel
   const DkLayout L = dk_layout(E);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -850,7 +1099,6 @@ dk_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restr
   }
   __syncthreads();
 
-  const int xcb = copy_bytes((kc * E) | (Cin * E) | (c0 * E) | low_bits(x));
   const int gcb = copy_bytes((nc * E) | (Cout * E) | (o0 * E) | low_bits(g));
   auto tile_origin = [&](int tile, int& b, int& r0, int& cc0) {
     b = tile / (nty * ntx);
@@ -864,31 +1112,7 @@ dk_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restr
     tile_origin(tile, b, r0, cc0);
     T* win = reinterpret_cast<T*>(smem + st * L.stage + L.win);
     T* gt = reinterpret_cast<T*>(smem + st * L.stage + L.gt);
-    if (xcb) {
-      const int cpp = kc * E / xcb;
-      for (int e = tid; e < DK_WPIX * cpp; e += DK_THREADS) {
-        const int wp = e / cpp;
-        const int part = e - wp * cpp;
-        const int wr = wp / (TW + 2);
-        const int r = r0 - 1 + wr;
-        const int c = cc0 - 1 + wp - wr * (TW + 2);
-        const bool ok = r >= 0 && r < H && c >= 0 && c < W;
-        const char* src = reinterpret_cast<const char*>(x);
-        if (ok) src += ((((size_t)b * H + r) * W + c) * Cin + c0) * E + part * xcb;
-        cp_async(reinterpret_cast<char*>(win) + (size_t)wp * DK_YP * E + part * xcb, src, xcb, ok);
-      }
-    } else {
-      for (int e = tid; e < DK_WPIX * kc; e += DK_THREADS) {
-        const int wp = e / kc;
-        const int ch = e - wp * kc;
-        const int wr = wp / (TW + 2);
-        const int r = r0 - 1 + wr;
-        const int c = cc0 - 1 + wp - wr * (TW + 2);
-        win[wp * DK_YP + ch] = (r >= 0 && r < H && c >= 0 && c < W)
-                                   ? x[(((size_t)b * H + r) * W + c) * Cin + c0 + ch]
-                                   : zero_of<T>();
-      }
-    }
+    stage_window(win, DK_YP, kc, x, b, r0, cc0, H, W, Cin, c0, kc, DK_THREADS);
     if (gcb) {
       const int cpp = nc * E / gcb;
       for (int e = tid; e < TH * TW * cpp; e += DK_THREADS) {
@@ -936,38 +1160,7 @@ dk_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* __restr
       tile_origin(first + u, b, r0, cc0);
       const T* win = reinterpret_cast<const T*>(smem + st * L.stage + L.win);
       float* y = reinterpret_cast<float*>(smem + (F32 ? st * L.stage + L.win : L.ywin));
-      for (int e = tid; e < DK_WPIX * CG; e += DK_THREADS) {
-        const int wp = e / CG;
-        const int cg = (e - wp * CG) * 4;
-        if (cg >= kc) continue;
-        const int wr = wp / (TW + 2);
-        const int r = r0 - 1 + wr;
-        const int c = cc0 - 1 + wp - wr * (TW + 2);
-        const bool inside = r >= 0 && r < H && c >= 0 && c < W;
-        // the group's 4 values in one load (16 bytes of f32, 8 of bf16)
-        float xv[4];
-        if constexpr (F32) {
-          const float4 q4 = *reinterpret_cast<const float4*>(win + wp * DK_YP + cg);
-          xv[0] = q4.x;
-          xv[1] = q4.y;
-          xv[2] = q4.z;
-          xv[3] = q4.w;
-        } else {
-          const uint2 q2 = *reinterpret_cast<const uint2*>(win + wp * DK_YP + cg);
-          xv[0] = __uint_as_float(q2.x << 16);
-          xv[1] = __uint_as_float(q2.x & 0xffff0000u);
-          xv[2] = __uint_as_float(q2.y << 16);
-          xv[3] = __uint_as_float(q2.y & 0xffff0000u);
-        }
-        const float4 a4 = *reinterpret_cast<const float4*>(s_a + cg);
-        const float4 b4 = *reinterpret_cast<const float4*>(s_b + cg);
-        const float av[4] = {a4.x, a4.y, a4.z, a4.w}, bv[4] = {b4.x, b4.y, b4.z, b4.w};
-        float v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          v[q] = inside && cg + q < kc ? Num<T>::round(fmaf(xv[q], av[q], bv[q])) : 0.f;
-        *reinterpret_cast<float4*>(y + wp * DK_YP + cg) = make_float4(v[0], v[1], v[2], v[3]);
-      }
+      affine_window<T, float>(win, DK_YP, y, DK_YP, s_a, s_b, kc, r0, cc0, H, W, DK_THREADS);
       if constexpr (!F32) {
         const T* gt = reinterpret_cast<const T*>(smem + st * L.stage + L.gt);
         float* yg = reinterpret_cast<float*>(smem + L.yg);
@@ -1081,16 +1274,19 @@ __global__ void dk_reduce_kernel(const float* __restrict__ partial, float* __res
   dk[v] = s;
 }
 
-inline dim3 conv_grid(int B, int H, int W, int Cout) {
-  return dim3((W + TW - 1) / TW, (H + TH - 1) / TH, B * ((Cout + CO - 1) / CO));
-}
-
 template <typename T>
 int fwd(const void* x, const void* a, const void* b, const void* k, void* out, int B, int H,
-        int W, int Cin, int Cout, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1) return (int)cudaErrorInvalidValue;
-  conv_kernel<T><<<conv_grid(B, H, W, Cout), NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)k, (const float*)a, (const float*)b, (float*)out, H, W, Cin, Cout);
+        int W, int Cin, int Cout, int n_blocks, void* stream) {
+  const long long n_tiles = (long long)B * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || n_blocks < 1 || n_blocks > n_tiles)
+    return (int)cudaErrorInvalidValue;
+  const FwLayout L = fw_layout(Cin, (int)sizeof(T));
+  const cudaError_t e =
+      cudaFuncSetAttribute(fw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (e != cudaSuccess) return (int)e;
+  fw_kernel<T><<<n_blocks, FW_THREADS, L.bytes, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)k, (const float*)a, (const float*)b, (float*)out, B, H, W, Cin,
+      Cout);
   return (int)cudaGetLastError();
 }
 
@@ -1147,17 +1343,18 @@ int dk(const void* x, const void* g, const void* a, const void* b, void* partial
 // x, g and k in the named dtype, a and b f32 (Cin), every output f32.
 // Each returns the first nonzero cudaGetLastError() of its launches.
 //
-// B7: x (B,H,W,Cin), k (3,3,Cin,Cout) -> out (B,H,W,Cout).
+// B7: x (B,H,W,Cin), k (3,3,Cin,Cout) -> out (B,H,W,Cout); n_blocks (at
+// most the number of 8x32 tiles) persistent blocks.
 extern "C" int dense_conv_fwd_f32(const void* x, const void* a, const void* b, const void* k,
                                   void* out, int B, int H, int W, int Cin, int Cout,
-                                  void* stream) {
-  return fwd<float>(x, a, b, k, out, B, H, W, Cin, Cout, stream);
+                                  int n_blocks, void* stream) {
+  return fwd<float>(x, a, b, k, out, B, H, W, Cin, Cout, n_blocks, stream);
 }
 
 extern "C" int dense_conv_fwd_bf16(const void* x, const void* a, const void* b, const void* k,
                                    void* out, int B, int H, int W, int Cin, int Cout,
-                                   void* stream) {
-  return fwd<__nv_bfloat16>(x, a, b, k, out, B, H, W, Cin, Cout, stream);
+                                   int n_blocks, void* stream) {
+  return fwd<__nv_bfloat16>(x, a, b, k, out, B, H, W, Cin, Cout, n_blocks, stream);
 }
 
 // B7': g (B,H,W,Cout), x (B,H,W,Cin), k (3,3,Cin,Cout) -> dx (B,H,W,Cin),

@@ -1,17 +1,22 @@
-// Sphere conv forward, stride 1 — hand-written CUDA C++ for sm_90a (H100).
+// Sphere conv forward, strides 1 and 2 — hand-written CUDA C++ for sm_90a
+// (H100).
 //
-// Replaces emlight_tpu/nn/sphere_conv_pallas.py::_kernel at stride 1 (the
-// Pallas TPU kernel B1, launched by sphere_conv_pallas). For each output
-// pixel (b, i, j) and output channel o:
+// Replaces emlight_tpu/nn/sphere_conv_pallas.py::_kernel (the Pallas TPU
+// kernel launched by sphere_conv_pallas) at stride 1 (B1) and at stride 2
+// (B2): one kernel, the stride S a template parameter. For each output
+// pixel (b, i, j) of the (Ho, Wo) = (H / S, W / S) map and output channel o:
 //
 //   out[b,i,j,o] = bias[o] + sum_{t<9} sum_c S[b,i,j,t,c] * K[t,c,o]
-//   S[b,i,j,t,c] = sum_{k<4} w(i,t,k,j) * x[b, rows[i,t,k], (j + shift[i,t,k]) mod W, c]
+//   S[b,i,j,t,c] = sum_{k<4} w(i,t,k,j) * x[b, rows[i,t,k], (S j + shift[i,t,k]) mod W, c]
 //   w(i,t,k,j)   = 0 if j == jdev[i,t,k] else w0[i,t,k]
 //
-// The (H, 9, 4) tables rows/shift/w0/jdev come from the port's
+// The (Ho, 9, 4) tables rows/shift/w0/jdev come from the port's
 // structured_tables and scalar_weight_tables (nn/sphere_conv_kernel.py),
 // which assert at build time that this decomposition is exact; the wrapper
-// packs them per (i, t, k) as int4 (row, shift, jdev, w0 bits).
+// packs them per (i, t, k) as int4 (row, shift, jdev, w0 bits). The stride
+// changes only the column map (S j + shift, as the JAX kernel's strided
+// slice of the shifted row) and the source rows a tile reads (its output
+// rows times S, widened by the table's row offsets rows - S i).
 //
 // What bounds it on an H100: operations. At the generator's widths a conv
 // does 2*9*Cin*Cout flops per output pixel against (Cin + Cout) * 4 bytes of
@@ -61,6 +66,9 @@
 // contiguous step ranges (s1_plan in nn/sphere_conv_kernel.py): each split
 // writes an f32 partial, and split_sum_kernel adds them in split order, so
 // the result is the same bits in every run.
+// At stride 2 (the discriminator's convs) the source rows of a tile double;
+// they are staged where they, the ring and the table fit, else the
+// producers gather from device memory (Cin 6, the front conv, always does).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,24 +137,25 @@ __host__ __device__ constexpr int core_offset(int r, int kc) {
 
 inline int gcd(int a, int b) { return b ? gcd(b, a % b) : a; }
 
-// the most flat output rows (b * H + i) a tile of BM pixels spans: tiles
-// start at multiples of BM, so at residues mod W that are multiples of
-// gcd(BM, W)
-inline int table_rows(int B, int H, int W) {
-  const int span = (W - gcd(BM, W) + BM - 1) / W + 1;
-  return span < B * H ? span : B * H;
+// the most flat output rows (b * Ho + i) a tile of BM pixels spans: tiles
+// start at multiples of BM, so at residues mod Wo that are multiples of
+// gcd(BM, Wo)
+inline int table_rows(int B, int Ho, int Wo) {
+  const int span = (Wo - gcd(BM, Wo) + BM - 1) / Wo + 1;
+  return span < B * Ho ? span : B * Ho;
 }
 
-inline int table_smem_bytes(int B, int H, int W) {
-  const int bytes = table_rows(B, H, W) * TAB * (int)sizeof(int4);
+inline int table_smem_bytes(int B, int Ho, int Wo) {
+  const int bytes = table_rows(B, Ho, Wo) * TAB * (int)sizeof(int4);
   return bytes <= TAB_SMEM_MAX ? bytes : 0;
 }
 
-// the most input rows a tile's gather reads: its output rows widened by
-// the tables' row offsets [dmin, dmax]
-inline int source_rows(int B, int H, int W, int dmin, int dmax) {
-  const int rows = table_rows(B, H, W) + dmax - dmin;
-  return rows < B * H ? rows : B * H;
+// the most input rows a tile's gather reads: its output rows times the
+// stride (flat output row f starts at flat input row S f), widened by the
+// tables' row offsets [dmin, dmax]
+inline int source_rows(int S, int B, int Ho, int Wo, int dmin, int dmax) {
+  const int rows = S * (table_rows(B, Ho, Wo) - 1) + dmax - dmin + 1;
+  return rows < B * S * Ho ? rows : B * S * Ho;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -423,15 +432,16 @@ __device__ __forceinline__ void producers_sync() {
 // so the 8 pixels a quarter warp reads fall on distinct banks
 __device__ __forceinline__ int row_slot(int px, int q) { return (q + (px >> 1)) & 3; }
 
-// B1. Grid: x = (m tile, n tile) with n fastest, y = K split. Block
-// (mt, nt, split) accumulates steps [split * per, (split + 1) * per) of
-// the 9 * ceil(Cin / BK) steps (step s: channel slab s / 9, tap s % 9) for
-// pixels [mt * BM, +BM) and channels [nt * BN, +BN); with one split it adds
-// the bias and writes out, else it writes partial[split]. STAGED: the
-// producers bring each slab's source rows into shared memory (two buffers of
-// rows_bytes, the next slab's loading while the current one's 9 taps are
-// gathered) and gather S from there; else they gather from device memory.
-template <typename T, int BN, bool STAGED>
+// B1 (S = 1) and B2 (S = 2). Grid: x = (m tile, n tile) with n fastest, y =
+// K split. Block (mt, nt, split) accumulates steps [split * per, (split +
+// 1) * per) of the 9 * ceil(Cin / BK) steps (step s: channel slab s / 9,
+// tap s % 9) for flat output pixels [mt * BM, +BM) and channels [nt * BN,
+// +BN); with one split it adds the bias and writes out, else it writes
+// partial[split]. STAGED: the producers bring each slab's source rows into
+// shared memory (two buffers of rows_bytes, the next slab's loading while
+// the current one's 9 taps are gathered) and gather S from there; else they
+// gather from device memory. H and W are the input's.
+template <typename T, int BN, bool STAGED, int S>
 __global__ void __launch_bounds__(NTHREADS, 1)
 s1_kernel(const T* __restrict__ x, const unsigned char* __restrict__ ktiles,
           const float* __restrict__ bias, const int4* __restrict__ table,
@@ -446,8 +456,9 @@ s1_kernel(const T* __restrict__ x, const unsigned char* __restrict__ ktiles,
   uint64_t* empty = full + NST;
 
   const int tid = threadIdx.x;
-  const int HW = H * W;
-  const int M = B * HW;
+  const int Ho = H / S;
+  const int Wo = W / S;
+  const int M = B * Ho * Wo;
   const int tiles_n = (Cout + BN - 1) / BN;
   const int nt = blockIdx.x % tiles_n;
   const int mt = blockIdx.x / tiles_n;
@@ -549,14 +560,14 @@ s1_kernel(const T* __restrict__ x, const unsigned char* __restrict__ ktiles,
     // ---- producer: S of each step into the stage's A tile, K_t by bulk copy ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     const int pt = tid - CONSUMERS;
-    const int fr0 = m0 / W;
+    const int fr0 = m0 / Wo;  // the tile's first flat output row
     unsigned char* const rows_s = smem + TL::TAB_OFF + (tab_in_smem ? span * TAB * 16 : 0);
     const int4* tab = table;
     if (tab_in_smem) {
       int4* tab_s = reinterpret_cast<int4*>(smem + TL::TAB_OFF);
       for (int e = pt; e < span * TAB; e += PRODUCERS) {
         const int fr = fr0 + e / TAB;
-        if (fr < B * H) tab_s[e] = table[(fr % H) * TAB + e % TAB];
+        if (fr < B * Ho) tab_s[e] = table[(fr % Ho) * TAB + e % TAB];
       }
       tab = tab_s;
     }
@@ -573,19 +584,20 @@ s1_kernel(const T* __restrict__ x, const unsigned char* __restrict__ ktiles,
       const int pg = pt / (8 * TL::KC) + j * (PRODUCERS / (8 * TL::KC));
       const int r = pg * 8 + p8;
       const int p = m0 + r;
-      const int fr = p / W;
-      ch_tab[j] = p < M ? (tab_in_smem ? fr - fr0 : fr % H) * TAB : -1;
-      ch_j[j] = p - fr * W;
-      ch_img[j] = (fr / H) * H;
+      const int fr = p / Wo;
+      ch_tab[j] = p < M ? (tab_in_smem ? fr - fr0 : fr % Ho) * TAB : -1;
+      ch_j[j] = p - fr * Wo;
+      ch_img[j] = (fr / Ho) * H;
       ch_off[j] = core_offset<TL::KC>(r, q);
     }
     const bool x_vec = Cin % VEC == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
     const unsigned char* ksrc = ktiles + (size_t)nt * n_steps * TL::B_BYTES;
 
-    // STAGED: flat input rows [fr_lo, fr_lo + n_rows) of a slab, pixel-major,
-    // PX_BYTES a pixel (chunk q in slot row_slot(px, q)), 0 past Cin
-    const int fr_lo = max(0, fr0 + dmin);
-    const int fr_hi = min(B * H - 1, (min(m0 + BM, M) - 1) / W + dmax);
+    // STAGED: flat input rows [fr_lo, fr_hi] of a slab, pixel-major, PX_BYTES
+    // a pixel (chunk q in slot row_slot(px, q)), 0 past Cin; flat output
+    // row f reads input rows S f + [dmin, dmax]
+    const int fr_lo = max(0, S * fr0 + dmin);
+    const int fr_hi = min(B * H - 1, S * ((min(m0 + BM, M) - 1) / Wo) + dmax);
     const int n_px = (fr_hi - fr_lo + 1) * W;
     const int s_first = s_begin / 9;
     auto load_rows = [&](int cs) {
@@ -651,7 +663,7 @@ s1_kernel(const T* __restrict__ x, const unsigned char* __restrict__ ktiles,
           xr[j][k] = make_uint4(0u, 0u, 0u, 0u);
           if (ok) {
             const int4 e = tab[ch_tab[j] + t * 4 + k];
-            int col = ch_j[j] + e.y;
+            int col = ch_j[j] * S + e.y;
             if (col >= W) col -= W;
             wv[j][k] = ch_j[j] == e.z ? 0.f : __int_as_float(e.w);
             if (STAGED) {
@@ -723,34 +735,36 @@ split_sum_kernel(const float* __restrict__ partial, const float* __restrict__ bi
   }
 }
 
-template <typename T, int BN, bool STAGED>
+template <typename T, int BN, bool STAGED, int S>
 int launch_main(const void* x, const void* ktiles, const void* bias, const void* table,
                 void* partial, void* out, int B, int H, int W, int Cin, int Cout, int per,
                 int n_split, int dmin, int dmax, int rows_bytes, int tab_bytes, int smem,
                 unsigned blocks, cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      s1_kernel<T, BN, STAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      s1_kernel<T, BN, STAGED, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  s1_kernel<T, BN, STAGED><<<dim3(blocks, n_split), NTHREADS, smem, st>>>(
+  s1_kernel<T, BN, STAGED, S><<<dim3(blocks, n_split), NTHREADS, smem, st>>>(
       (const T*)x, (const unsigned char*)ktiles, (const float*)bias, (const int4*)table,
-      (float*)out, (float*)partial, B, H, W, Cin, Cout, per, table_rows(B, H, W),
+      (float*)out, (float*)partial, B, H, W, Cin, Cout, per, table_rows(B, H / S, W / S),
       tab_bytes > 0 ? 1 : 0, dmin, dmax, rows_bytes);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int BN>
+template <typename T, int BN, int S>
 int launch_bn(const void* x, const void* kmat, const void* bias, const void* table,
               void* ktiles, void* partial, void* out, int B, int H, int W, int Cin, int Cout,
               int per, int n_split, int dmin, int dmax, cudaStream_t st) {
   using TL = Tile<T, BN>;
-  const int tab_bytes = table_smem_bytes(B, H, W);
+  const int Ho = H / S, Wo = W / S;
+  const int tab_bytes = table_smem_bytes(B, Ho, Wo);
   // the source rows in shared memory (double-buffered) where they fit and
   // come in 16-byte chunks
-  const long long rows_bytes = (long long)source_rows(B, H, W, dmin, dmax) * W * PX_BYTES;
+  const long long rows_bytes =
+      (long long)source_rows(S, B, Ho, Wo, dmin, dmax) * W * PX_BYTES;
   const bool staged = TL::TAB_OFF + tab_bytes + 2 * rows_bytes <= SMEM_MAX &&
                       Cin % Cfg<T>::VEC == 0;
   const int smem = TL::TAB_OFF + tab_bytes + (staged ? 2 * (int)rows_bytes : 0);
-  const long long M = (long long)B * H * W;
+  const long long M = (long long)B * Ho * Wo;
   const int tiles_n = (Cout + BN - 1) / BN;
   const long long blocks = ((M + BM - 1) / BM) * tiles_n;
   const int n_steps = 9 * ((Cin + TL::BK - 1) / TL::BK);
@@ -760,12 +774,13 @@ int launch_bn(const void* x, const void* kmat, const void* bias, const void* tab
       (const T*)kmat, (unsigned char*)ktiles, Cin, Cout, n_steps);
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  rc = staged ? launch_main<T, BN, true>(x, ktiles, bias, table, partial, out, B, H, W, Cin,
-                                         Cout, per, n_split, dmin, dmax, (int)rows_bytes,
-                                         tab_bytes, smem, (unsigned)blocks, st)
-              : launch_main<T, BN, false>(x, ktiles, bias, table, partial, out, B, H, W, Cin,
-                                          Cout, per, n_split, dmin, dmax, 0, tab_bytes, smem,
-                                          (unsigned)blocks, st);
+  rc = staged ? launch_main<T, BN, true, S>(x, ktiles, bias, table, partial, out, B, H, W,
+                                            Cin, Cout, per, n_split, dmin, dmax,
+                                            (int)rows_bytes, tab_bytes, smem, (unsigned)blocks,
+                                            st)
+              : launch_main<T, BN, false, S>(x, ktiles, bias, table, partial, out, B, H, W,
+                                             Cin, Cout, per, n_split, dmin, dmax, 0, tab_bytes,
+                                             smem, (unsigned)blocks, st);
   if (rc || n_split == 1) return rc;
   const long long n_values = M * Cout;
   const long long grid = (n_values + RED_THREADS - 1) / RED_THREADS;
@@ -774,7 +789,7 @@ int launch_bn(const void* x, const void* kmat, const void* bias, const void* tab
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int S>
 int launch(const void* x, const void* kmat, const void* bias, const void* table, void* ktiles,
            void* partial, void* out, int B, int H, int W, int Cin, int Cout, int bn, int bk,
            int per, int n_split, int dmin, int dmax, void* stream) {
@@ -782,43 +797,42 @@ int launch(const void* x, const void* kmat, const void* bias, const void* table,
   const int n_steps = 9 * ((Cin + BK - 1) / BK);
   // the plan (nn/sphere_conv_kernel.py::s1_plan) must cover every step,
   // each split non-empty
-  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || bk != BK || per < 1 || n_split < 1 ||
-      (long long)per * n_split < n_steps || (long long)per * (n_split - 1) >= n_steps ||
-      dmin > 0 || dmax < 0)
+  if (B < 1 || H < S || W < S || H % S || W % S || Cin < 1 || Cout < 1 || bk != BK || per < 1 ||
+      n_split < 1 || (long long)per * n_split < n_steps ||
+      (long long)per * (n_split - 1) >= n_steps || dmin > 0 || dmax < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (bn == 128)
-    return launch_bn<T, 128>(x, kmat, bias, table, ktiles, partial, out, B, H, W, Cin, Cout,
-                             per, n_split, dmin, dmax, st);
+    return launch_bn<T, 128, S>(x, kmat, bias, table, ktiles, partial, out, B, H, W, Cin, Cout,
+                                per, n_split, dmin, dmax, st);
   if (bn == 64)
-    return launch_bn<T, 64>(x, kmat, bias, table, ktiles, partial, out, B, H, W, Cin, Cout,
-                            per, n_split, dmin, dmax, st);
+    return launch_bn<T, 64, S>(x, kmat, bias, table, ktiles, partial, out, B, H, W, Cin, Cout,
+                               per, n_split, dmin, dmax, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. x (B,H,W,Cin) and kmat (9,Cin,Cout) in the
-// named dtype, bias (Cout,) f32, table (H,9,4) int4 (row, shift, jdev, w0
-// bits) whose source rows lie in [i + dmin, i + dmax], out (B,H,W,Cout)
-// f32; all contiguous on the device of `stream`. (bn, bk, per, n_split) is
-// s1_plan's: tile width, K step depth, steps per split and split count.
-// ktiles is a byte scratch of tiles_n * n_steps * bn * bk * sizeof(dtype)
-// (twice that for f32: TF32 hi and lo); with n_split > 1, partial is an f32
-// scratch of n_split * B*H*W * Cout. Returns the first nonzero
-// cudaGetLastError() of the launches.
-extern "C" int sphere_conv_s1_f32(const void* x, const void* kmat, const void* bias,
-                                  const void* table, void* ktiles, void* partial, void* out,
-                                  int B, int H, int W, int Cin, int Cout, int bn, int bk, int per,
-                                  int n_split, int dmin, int dmax, void* stream) {
-  return launch<float>(x, kmat, bias, table, ktiles, partial, out, B, H, W, Cin, Cout, bn, bk,
-                       per, n_split, dmin, dmax, stream);
-}
+// Plain C interface for ctypes, stride 1 (B1) and 2 (B2). x (B,H,W,Cin) and
+// kmat (9,Cin,Cout) in the named dtype, bias (Cout,) f32, table (Ho,9,4)
+// int4 (row, shift, jdev, w0 bits) whose source rows lie in [S i + dmin,
+// S i + dmax], out (B,Ho,Wo,Cout) f32 with (Ho, Wo) = (H, W) / S; all
+// contiguous on the device of `stream`. (bn, bk, per, n_split) is s1_plan's:
+// tile width, K step depth, steps per split and split count. ktiles is a
+// byte scratch of tiles_n * n_steps * bn * bk * sizeof(dtype) (twice that
+// for f32: TF32 hi and lo); with n_split > 1, partial is an f32 scratch of
+// n_split * B*Ho*Wo * Cout. Returns the first nonzero cudaGetLastError() of
+// the launches.
+#define SPHERE_CONV_ENTRY(NAME, T, S)                                                          \
+  extern "C" int NAME(const void* x, const void* kmat, const void* bias, const void* table,   \
+                      void* ktiles, void* partial, void* out, int B, int H, int W, int Cin,   \
+                      int Cout, int bn, int bk, int per, int n_split, int dmin, int dmax,     \
+                      void* stream) {                                                          \
+    return launch<T, S>(x, kmat, bias, table, ktiles, partial, out, B, H, W, Cin, Cout, bn,  \
+                        bk, per, n_split, dmin, dmax, stream);                                 \
+  }
 
-extern "C" int sphere_conv_s1_bf16(const void* x, const void* kmat, const void* bias,
-                                   const void* table, void* ktiles, void* partial, void* out,
-                                   int B, int H, int W, int Cin, int Cout, int bn, int bk,
-                                   int per, int n_split, int dmin, int dmax, void* stream) {
-  return launch<__nv_bfloat16>(x, kmat, bias, table, ktiles, partial, out, B, H, W, Cin, Cout,
-                               bn, bk, per, n_split, dmin, dmax, stream);
-}
+SPHERE_CONV_ENTRY(sphere_conv_s1_f32, float, 1)
+SPHERE_CONV_ENTRY(sphere_conv_s1_bf16, __nv_bfloat16, 1)
+SPHERE_CONV_ENTRY(sphere_conv_s2_f32, float, 2)
+SPHERE_CONV_ENTRY(sphere_conv_s2_bf16, __nv_bfloat16, 2)

@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("sphere_conv_s1", "sphere_conv_s2", "sphere_conv_dx_s1", "sphere_conv_dx",
+SOURCES = ("sphere_conv_s1", "sphere_conv_dx_s1", "sphere_conv_dx",
            "sphere_conv_dk", "sphere_conv_dx_triple", "dense_conv")
 BUILD_TIMEOUT_S = 600
 

@@ -2,9 +2,11 @@
 hand-written CUDA kernels of csrc/dense_conv.cu.
 
 - ``dense_conv_fwd`` B7,  conv3x3(x * a + b, K)
-- ``dense_conv_dx``  B7', dx = conv_T(g, K) * a and da, db (on the tensor
-                     cores: mma.sync, f32 as 3xTF32)
-- ``dense_conv_dk``  B8,  dK (on the tensor cores: mma.sync, f32 as 3xTF32)
+- ``dense_conv_dx``  B7', dx = conv_T(g, K) * a and da, db
+- ``dense_conv_dk``  B8,  dK
+
+All three run on the tensor cores (mma.sync, f32 as 3xTF32); B7 and B7'
+on ``dx_blocks``' persistent grid.
 
 ``KERNELS`` maps each wrapper to its TPU kernel and source. A CPU tensor
 takes the plain version (nn/dense_conv.py); a CUDA tensor takes the kernel or
@@ -33,7 +35,7 @@ KERNELS = {
 _TILE_H, _TILE_W = 8, 32      # the kernels' output tile (TH, TW)
 _DK_CIN, _DK_COUT = 48, 16    # B8's input and output channels per block
 _DK_BLOCKS = 132              # B8: one block per SM of an H100
-_DX_BLOCKS = 132              # B7': one persistent block per SM of an H100
+_DX_BLOCKS = 132              # B7, B7': one persistent block per SM of an H100
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -80,8 +82,9 @@ def dense_conv_fwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     """conv3x3(x * a + b, kernel), SAME zero padding: x (B, H, W, Cin),
     kernel (3, 3, Cin, Cout) -> (B, H, W, Cout) f32.
 
-    CPU tensor: ``conv3x3_nhwc_reference``. CUDA tensor: one launch of B7 on
-    the current stream, counted in ``dense_conv_fwd.launches``.
+    CPU tensor: ``conv3x3_nhwc_reference``. CUDA tensor: one launch of B7
+    (``dx_blocks`` persistent blocks) on the current stream, counted in
+    ``dense_conv_fwd.launches``.
     """
     if not on_cuda(x, "dense_conv_fwd"):
         from .dense_conv import conv3x3_nhwc_reference
@@ -92,9 +95,9 @@ def dense_conv_fwd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     bsz, h, w, cin = x.shape
     out = torch.empty(bsz, h, w, cout, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = entry("dense_conv", "dense_conv_fwd", x.dtype, 5, 5)(
+        rc = entry("dense_conv", "dense_conv_fwd", x.dtype, 5, 6)(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), kernel.data_ptr(), out.data_ptr(),
-            bsz, h, w, cin, cout, _stream(x))
+            bsz, h, w, cin, cout, dx_blocks(bsz, h, w), _stream(x))
     raise_on(rc, "dense_conv_fwd", f"x {tuple(x.shape)} {x.dtype}, cout {cout}")
     dense_conv_fwd.launches += 1
     return out
@@ -135,8 +138,9 @@ def dense_conv_dx(g: torch.Tensor, x: torch.Tensor, a: torch.Tensor, kernel: tor
 
 
 def dx_blocks(b: int, h: int, w: int) -> int:
-    """The grid of B7′: one persistent block per SM, never more blocks than
-    8x32 tiles (each block sums dA, dB over the tiles it walks)."""
+    """The grid of B7 and B7′: one persistent block per SM, never more
+    blocks than 8x32 tiles (a B7′ block sums dA, dB over the tiles it
+    walks)."""
     return min(_DX_BLOCKS, b * _cdiv(h, _TILE_H) * _cdiv(w, _TILE_W))
 
 

@@ -3,7 +3,8 @@ the hand-written CUDA kernels.
 
 Kernels (``KERNELS`` maps each wrapper to its TPU kernel and source):
 - ``sphere_conv_s1``    B1, forward at stride 1     (csrc/sphere_conv_s1.cu)
-- ``sphere_conv_s2``    B2, forward at stride 2     (csrc/sphere_conv_s2.cu)
+- ``sphere_conv_s2``    B2, forward at stride 2     (csrc/sphere_conv_s1.cu, the
+                                                    same kernel's stride-2 instance)
 - ``sphere_conv_dx_s1`` B3, dx at stride 1          (csrc/sphere_conv_dx_s1.cu)
 - ``sphere_conv_dx_s1_triple`` B6, dx at stride 1 on the small maps
                                                     (csrc/sphere_conv_dx_triple.cu)
@@ -20,11 +21,11 @@ the gnomonic sampling pattern, verified here when the tables are built:
 - the bilinear weight is one scalar w0(i, t, k) for every column except at
   most one column jdev(i, t, k) where grid_sample's zero pad kills it.
 On an H100 every one of them is bound by operations at the model's widths;
-each computes its matmul in the kernel itself: B1 (wgmma), B3, B4 and B6
-(mma.sync) on the tensor cores, f32 as 3xTF32; the others in f32 on the
-CUDA cores. See each .cu file's header for the design; ``s1_plan`` is B1's
-tiling and K split, ``dk_plan`` B4's grid and pixel split, ``triple_tiles``
-B6's GEMM tiles and K split.
+each computes its matmul in the kernel itself: B1 and B2 (wgmma), B3, B4 and
+B6 (mma.sync) on the tensor cores, f32 as 3xTF32; B5 in f32 on the CUDA
+cores. See each .cu file's header for the design; ``s1_plan`` is B1's and
+B2's tiling and K split, ``dk_plan`` B4's grid and pixel split,
+``triple_tiles`` B6's GEMM tiles and K split.
 
 A CPU tensor takes the plain version (nn/sphere_conv.py::sphere_conv_plain,
 nn/sphere_conv_vjp.py::dx_plain and dk_plain); a CUDA tensor takes the
@@ -52,7 +53,7 @@ __all__ = ["structured_tables", "scalar_weight_tables", "sphere_conv_s1", "spher
 KERNELS = {
     "sphere_conv_s1": ("B1", "emlight_tpu_torch/csrc/sphere_conv_s1.cu",
                        "emlight_tpu/nn/sphere_conv_pallas.py:113"),  # _kernel, stride 1
-    "sphere_conv_s2": ("B2", "emlight_tpu_torch/csrc/sphere_conv_s2.cu",
+    "sphere_conv_s2": ("B2", "emlight_tpu_torch/csrc/sphere_conv_s1.cu",
                        "emlight_tpu/nn/sphere_conv_pallas.py:113"),  # _kernel, stride 2
     "sphere_conv_dx_s1": ("B3", "emlight_tpu_torch/csrc/sphere_conv_dx_s1.cu",
                           "emlight_tpu/nn/sphere_conv_vjp.py:199"),  # _dx_kernel_s1_umajor
@@ -132,16 +133,6 @@ def scalar_weight_tables(h: int, w: int, stride: int = 1):
 
 
 @functools.lru_cache(maxsize=None)
-def _device_tables(h: int, w: int, stride: int, device: str):
-    """(rows, shifts, w0, jdev), each (h // stride, 9, 4), copied to `device`
-    once per (shape, stride)."""
-    rows, shifts, _ = structured_tables(h, w, stride)
-    w0, jdev = scalar_weight_tables(h, w, stride)
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (rows, shifts, w0, jdev))
-
-
-@functools.lru_cache(maxsize=None)
 def _device_inverse_tables(h: int, w: int, stride: int, device: str):
     """(out_rows, taps, shifts, w0, jdev) of inverse_tables, each (h, fanin),
     on `device`, and fanin."""
@@ -162,13 +153,14 @@ def _packed_table(h: int, w: int, stride: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_s1_table(h: int, w: int, device: str) -> tuple[torch.Tensor, int, int]:
-    """B1's gather table, ``_packed_table(h, w, 1)``, on `device` once per
-    shape; and the least and the largest source row offset (rows - i),
-    which size the rows a tile's gather reads."""
-    rows, _, _ = structured_tables(h, w, 1)
-    offsets = rows - np.arange(h)[:, None, None]
-    return (torch.from_numpy(_packed_table(h, w, 1)).to(device),
+def _device_s1_table(h: int, w: int, stride: int, device: str) -> tuple[torch.Tensor, int, int]:
+    """B1's (stride 1) or B2's (stride 2) gather table, ``_packed_table(h, w,
+    stride)``, on `device` once per (shape, stride); and the least and the
+    largest source row offset (rows - stride * i), which size the rows a
+    tile's gather reads."""
+    rows, _, _ = structured_tables(h, w, stride)
+    offsets = rows - stride * np.arange(h // stride)[:, None, None]
+    return (torch.from_numpy(_packed_table(h, w, stride)).to(device),
             min(0, int(offsets.min())), max(0, int(offsets.max())))
 
 
@@ -198,10 +190,10 @@ def _device_tap_tables(h: int, w: int, device: str):
 
 
 class S1Plan(NamedTuple):
-    """B1's grid: output tiles of bm flat pixels x bn channels, K walked in
-    9 * ceil(cin / bk) steps (step s: channel slab s // 9, tap s % 9; bk is
-    16 f32 or 32 bf16 channels, 64 bytes), cut into n_split contiguous
-    ranges of `per` steps (the last may be shorter)."""
+    """B1's and B2's grid: output tiles of bm flat output pixels x bn
+    channels, K walked in 9 * ceil(cin / bk) steps (step s: channel slab
+    s // 9, tap s % 9; bk is 16 f32 or 32 bf16 channels, 64 bytes), cut into
+    n_split contiguous ranges of `per` steps (the last may be shorter)."""
     bm: int
     bn: int
     bk: int
@@ -215,24 +207,31 @@ class S1Plan(NamedTuple):
 _S1_BM = 128                  # the kernel's BM
 _S1_BK = {torch.float32: 16, torch.bfloat16: 32}  # and its BK per dtype
 _S1_TARGET_BLOCKS = 264       # 2 blocks per SM of an H100's 132
-_S1_SPLIT_MIN_WORK = 1 << 17  # split K only where cin * cout is at least this
+# split K only where cin * cout is at least this: at stride 1 the generator's
+# wide convs on its small maps; at stride 2 the discriminator's 128 -> 256
+# convs, whose output maps (16x32 and 8x16 at batch 16) give 128 and 32
+# blocks of 72 steps each
+_S1_SPLIT_MIN_WORK = {1: 1 << 17, 2: 1 << 15}
 
 
 def s1_plan(b: int, h: int, w: int, cin: int, cout: int,
-            dtype: torch.dtype = torch.float32) -> S1Plan:
-    """B1's tiles and K split for x (b, h, w, cin) -> cout in `dtype`:
-    128-pixel tiles over the flat b*h*w pixels (so they cross rows and
-    images), 128 output channels per tile (64 when cout <= 64); when the
-    tiles give fewer than about 2 x 132 blocks and cin * cout >= 2**17 (the
-    4x8, 8x16 and 16x32 maps of the generator's wide convs), K is split into
-    enough contiguous step ranges to reach that, each summed into its own
-    partial."""
+            dtype: torch.dtype = torch.float32, stride: int = 1) -> S1Plan:
+    """B1's (stride 1) or B2's (stride 2) tiles and K split for x (b, h, w,
+    cin) -> cout in `dtype`: 128-pixel tiles over the flat b*(h/stride)*
+    (w/stride) output pixels (so they cross rows and images), 128 output
+    channels per tile (64 when cout <= 64); when the tiles give fewer than
+    about 2 x 132 blocks and cin * cout reaches ``_S1_SPLIT_MIN_WORK`` (the
+    4x8, 8x16 and 16x32 maps of the generator's wide convs; the
+    discriminator's 128 -> 256 convs), K is split into enough contiguous
+    step ranges to reach that, each summed into its own partial."""
     bn = 128 if cout > 64 else 64
     bk = _S1_BK[dtype]
-    tiles_m, tiles_n = _cdiv(b * h * w, _S1_BM), _cdiv(cout, bn)
+    tiles_m = _cdiv(b * (h // stride) * (w // stride), _S1_BM)
+    tiles_n = _cdiv(cout, bn)
     n_steps = 9 * _cdiv(cin, bk)
     want = 1
-    if tiles_m * tiles_n < _S1_TARGET_BLOCKS and cin * cout >= _S1_SPLIT_MIN_WORK:
+    if (tiles_m * tiles_n < _S1_TARGET_BLOCKS
+            and cin * cout >= _S1_SPLIT_MIN_WORK[stride]):
         want = min(n_steps, _cdiv(_S1_TARGET_BLOCKS, tiles_m * tiles_n))
     per = _cdiv(n_steps, want)
     return S1Plan(_S1_BM, bn, bk, tiles_m, tiles_n, n_steps, per, _cdiv(n_steps, per))
@@ -268,22 +267,36 @@ def _validate(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None,
             raise ValueError("bias must be contiguous on x's device")
 
 
-def _forward(x, kernel, bias, stride: int, lib_name: str) -> torch.Tensor:
+def _sphere_conv_fwd(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor | None,
+                     stride: int) -> torch.Tensor:
+    """One call of csrc/sphere_conv_s1.cu's kernel at `stride` on a CUDA x."""
+    name = f"sphere_conv_s{stride}"
     _validate(x, kernel, bias, stride)
     b, h, w, cin = x.shape
     cout = kernel.shape[3]
     if bias is None:
         bias = torch.zeros(cout, dtype=torch.float32, device=x.device)
-    rows, shifts, w0, jdev = _device_tables(h, w, stride, str(x.device))
-    out = torch.empty(b, h // stride, w // stride, cout, dtype=torch.float32, device=x.device)
+    plan = s1_plan(b, h, w, cin, cout, x.dtype, stride)
+    table, dmin, dmax = _device_s1_table(h, w, stride, str(x.device))
+    # K_t laid out per (n tile, K step) for the kernel's bulk copies; f32
+    # holds its TF32 hi and lo parts
+    parts = 2 if x.dtype == torch.float32 else 1
+    ktiles = torch.empty(plan.tiles_n * plan.n_steps * plan.bn * plan.bk * parts,
+                         dtype=x.dtype, device=x.device)
+    ho, wo = h // stride, w // stride
+    out = torch.empty(b, ho, wo, cout, dtype=torch.float32, device=x.device)
+    partial = (torch.empty(plan.n_split, b * ho * wo, cout, dtype=torch.float32,
+                           device=x.device)
+               if plan.n_split > 1 else out)
     # the launch goes to the current device: make it x's
     with torch.cuda.device(x.device):
-        rc = entry(lib_name, lib_name, x.dtype, 8, 5)(
-            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), rows.data_ptr(),
-            shifts.data_ptr(), w0.data_ptr(), jdev.data_ptr(), out.data_ptr(),
-            b, h, w, cin, cout, torch.cuda.current_stream(x.device).cuda_stream,
+        rc = entry("sphere_conv_s1", name, x.dtype, 7, 11)(
+            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), table.data_ptr(),
+            ktiles.data_ptr(), partial.data_ptr(), out.data_ptr(), b, h, w, cin, cout, plan.bn,
+            plan.bk, plan.per, plan.n_split, dmin, dmax,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
-    raise_on(rc, lib_name, f"x {tuple(x.shape)} {x.dtype}, cout {cout}")
+    raise_on(rc, name, f"x {tuple(x.shape)} {x.dtype}, cout {cout}")
     return out
 
 
@@ -299,29 +312,7 @@ def sphere_conv_s1(x: torch.Tensor, kernel: torch.Tensor,
     """
     if not on_cuda(x, "sphere_conv_s1"):
         return sphere_conv_plain(x, kernel, bias, 1)
-    _validate(x, kernel, bias, 1)
-    b, h, w, cin = x.shape
-    cout = kernel.shape[3]
-    if bias is None:
-        bias = torch.zeros(cout, dtype=torch.float32, device=x.device)
-    plan = s1_plan(b, h, w, cin, cout, x.dtype)
-    table, dmin, dmax = _device_s1_table(h, w, str(x.device))
-    # K_t laid out per (n tile, K step) for the kernel's bulk copies; f32
-    # holds its TF32 hi and lo parts
-    parts = 2 if x.dtype == torch.float32 else 1
-    ktiles = torch.empty(plan.tiles_n * plan.n_steps * plan.bn * plan.bk * parts,
-                         dtype=x.dtype, device=x.device)
-    out = torch.empty(b, h, w, cout, dtype=torch.float32, device=x.device)
-    partial = (torch.empty(plan.n_split, b * h * w, cout, dtype=torch.float32, device=x.device)
-               if plan.n_split > 1 else out)
-    with torch.cuda.device(x.device):
-        rc = entry("sphere_conv_s1", "sphere_conv_s1", x.dtype, 7, 11)(
-            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), table.data_ptr(),
-            ktiles.data_ptr(), partial.data_ptr(), out.data_ptr(), b, h, w, cin, cout, plan.bn,
-            plan.bk, plan.per, plan.n_split, dmin, dmax,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    raise_on(rc, "sphere_conv_s1", f"x {tuple(x.shape)} {x.dtype}, cout {cout}")
+    out = _sphere_conv_fwd(x, kernel, bias, 1)
     sphere_conv_s1.launches += 1
     return out
 
@@ -331,12 +322,13 @@ def sphere_conv_s2(x: torch.Tensor, kernel: torch.Tensor,
     """Stride-2 sphere conv: x (B, H, W, Cin) f32/bf16 with H, W even, kernel
     (3, 3, Cin, Cout) in x's dtype, bias (Cout,) f32 -> (B, H/2, W/2, Cout) f32.
 
-    CPU tensor: the plain version. CUDA tensor: one launch of the CUDA kernel,
-    counted in ``sphere_conv_s2.launches``.
+    CPU tensor: the plain version. CUDA tensor: B1's kernel at stride 2, with
+    ``s1_plan(..., stride=2)``'s tiles and K split (two or three launches on
+    the current stream), counted once in ``sphere_conv_s2.launches``.
     """
     if not on_cuda(x, "sphere_conv_s2"):
         return sphere_conv_plain(x, kernel, bias, 2)
-    out = _forward(x, kernel, bias, 2, "sphere_conv_s2")
+    out = _sphere_conv_fwd(x, kernel, bias, 2)
     sphere_conv_s2.launches += 1
     return out
 

@@ -133,9 +133,12 @@ def _close(out, ref, dtype, rtol=1e-4, atol=1e-4):
 
 
 # the discriminator's stride-2 shapes (cin 6 front at 128x256 and 64x128,
-# 8x16 and 16x32 maps) and ragged widths
-S2_SHAPES = [((2, 128, 256, 6), 64), ((2, 64, 128, 6), 64), ((2, 32, 64, 128), 256),
-             ((2, 16, 32, 128), 256), ((3, 8, 16, 20), 70)]
+# 64 -> 128 and 128 -> 256 on both scales; the last at its batch 16, where
+# B2 splits K 9 ways), --crop_size 512's front conv (a 256x512 map) and
+# ragged widths
+S2_SHAPES = [((2, 128, 256, 6), 64), ((2, 64, 128, 6), 64), ((2, 64, 128, 64), 128),
+             ((2, 32, 64, 64), 128), ((2, 32, 64, 128), 256), ((2, 16, 32, 128), 256),
+             ((16, 16, 32, 128), 256), ((2, 256, 512, 6), 64), ((3, 8, 16, 20), 70)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -150,6 +153,18 @@ def test_stride2_kernel_matches_plain(card, dtype, shape, cout):
     assert tker.sphere_conv_s2.launches == before + 1
     assert out.shape == (shape[0], shape[1] // 2, shape[2] // 2, cout)
     _close(out, tsc.sphere_conv_plain(x, k, bias, 2), dtype)
+
+
+# B2 where it splits K and stages its source rows (128 -> 256 at batch 16)
+# and where it gathers from device memory (cin 6)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout", [((16, 32, 64, 128), 256), ((2, 128, 256, 6), 64)])
+def test_stride2_kernel_is_deterministic(card, dtype, shape, cout):
+    x, k, bias = _inputs(shape, cout, card, seed=11)
+    dt = getattr(torch, dtype)
+    x, k = x.to(dt), k.to(dt)
+    assert (tker.s1_plan(*shape, cout, dt, stride=2).n_split > 1) == (shape[-1] == 128)
+    assert torch.equal(tker.sphere_conv_s2(x, k, bias), tker.sphere_conv_s2(x, k, bias))
 
 
 # (x shape, cout, stride): cin 3/6 and cout 3, 8x16 maps, and a wide 4x8 map
@@ -456,6 +471,16 @@ def test_dense_conv_kernels_match_plain(card, dtype, shape, cout):
     _close(dk, tdc.conv3x3_dk_plain(x, g, a, b), dtype, rtol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_conv_fwd_is_deterministic(card, dtype):
+    """B7 at the regression step's 96x128 shape, batch 16: two runs, same
+    bits."""
+    x, a, b, k, _ = _dense_inputs((16, 96, 128, 48), 12, card, seed=6)
+    dt = getattr(torch, dtype)
+    x, k = x.to(dt), k.to(dt)
+    assert torch.equal(tdk.dense_conv_fwd(x, a, b, k), tdk.dense_conv_fwd(x, a, b, k))
+
+
 def test_dense_conv_reductions_are_deterministic(card):
     x, a, b, k, g = _dense_inputs((4, 48, 64, 48), 12, card)
     first = (*tdk.dense_conv_dx(g, x, a, k)[1:], tdk.dense_conv_dk(x, g, a, b))
@@ -479,6 +504,22 @@ def test_dense_dk_matches_plain_at_ragged_widths(card, dtype, shape, cout):
     torch.cuda.synchronize()
     assert tdk.dense_conv_dk.launches == before + 1
     _close(dk, tdc.conv3x3_dk_plain(x, g, a, b), dtype, rtol=1e-3)
+
+
+# B7 on several input slabs and output passes: the ragged widths above and
+# 144 -> 40 (three full 48-channel slabs, three passes of 16 output channels)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout", DK_RAGGED + [((2, 16, 64, 144), 40)])
+def test_dense_fwd_matches_plain_at_ragged_widths(card, dtype, shape, cout):
+    x, a, b, k, _ = _dense_inputs(shape, cout, card, seed=7)
+    dt = getattr(torch, dtype)
+    x, k = x.to(dt), k.to(dt)
+    before = tdk.dense_conv_fwd.launches
+    out = tdk.dense_conv_fwd(x, a, b, k)
+    torch.cuda.synchronize()
+    assert tdk.dense_conv_fwd.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (*shape[:3], cout)
+    _close(out, tdc.conv3x3_nhwc_reference(x, a, b, k), dtype)
 
 
 def test_dense_dk_is_deterministic_at_the_path_shape(card):
