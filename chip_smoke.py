@@ -31,14 +31,15 @@ version. Phases, each of which raises on failure:
             G's BatchNorm statistics changed
 7. tcheck   every training kernel (B2 forward, B3/B6/B5 dx, B4 dK) vs its
             plain version at every distinct training shape, f32 and bf16, at
-            batch 2 and at the main path's batch (the timed inputs); B3 and
-            B2 also at --crop_size 512's 256x512 map (B3: 64 -> 3, 128 -> 64;
-            B2: the front conv 6 -> 64; batch 2)
+            batch 2 and at the main path's batch (the timed inputs); B3, B2
+            and B5 also at --crop_size 512's 256x512 map (B3: 64 -> 3, 128 ->
+            64; B2 and B5: the front conv 6 -> 64; batch 2)
 8. ttiming  per-shape kernel vs plain version vs bounds and the cuDNN
             yardstick of the same size (B1: the dense conv; B2: the dense
-            conv at stride 2; B4: conv2d_weight; B3 and B6: conv2d_input),
-            and B3 against B6 at
-            every stride-1 dx shape; sums by kernel and by map;
+            conv at stride 2; B4: conv2d_weight; B3, B6 and B5:
+            conv2d_input, B5's at stride 2),
+            B3 against B6 at every stride-1 dx shape, and B6's and B5's
+            U GEMM and gather apart (profiler); sums by kernel and by map;
             the G step and the D step at batch 8, with the caching
             allocator's cudaMalloc / cudaFree calls, retries and syncs over
             them; one profiled G step: idle share, top device work
@@ -108,7 +109,8 @@ EXPECTED_REG_STEP = {"dense_conv_fwd": 48, "dense_conv_dx": 48, "dense_conv_dk":
 REG_METRICS = {"loss", "dist_emloss", "dist_l2loss", "intensity_loss", "rgb_loss",
                "ambient_loss"}
 # --crop_size 512's outer stride-1 convs, whose dx B3 is held to at batch 2,
-# and its discriminator's front conv, which B2 is held to
+# and its discriminator's front conv, which B2 (forward) and B5 (dx) are
+# held to
 WIDE_DX_SHAPES = [(2, 256, 512, 64, 3, 1), (2, 256, 512, 128, 64, 1)]
 WIDE_S2_SHAPES = [(2, 256, 512, 6, 64, 2)]
 # card vs CPU gradients (phases 9 and 13): each leaf within the larger of GRAD_REL and
@@ -255,9 +257,10 @@ def dense_conv_yardstick(torch, x, cout, stride=1):
 
 def dense_grad_yardstick(torch, kind, x, g, stride):
     """cuDNN's gradient of a dense 3x3 conv (padding 1, channels_last, TF32
-    off as main sets it) at the sphere conv's sizes: ``conv2d_weight`` for dK
-    (beside B4), ``conv2d_input`` for dx (beside B3 and B6). Yardsticks of
-    what a library gradient of that size costs, not the same function."""
+    off as main sets it) at the sphere conv's sizes and stride:
+    ``conv2d_weight`` for dK (beside B4), ``conv2d_input`` for dx (beside B3
+    and B6; at stride 2 beside B5). Yardsticks of what a library gradient of
+    that size costs, not the same function."""
     x_cl, g_cl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)  # NHWC in memory
     cin, cout = x.shape[3], g.shape[3]
     w_cl = torch.randn(cout, cin, 3, 3, device=x.device).contiguous(
@@ -456,7 +459,9 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
         f"dx_plain in f32 and bf16")
     for shape in WIDE_S2_SHAPES:
         check("sphere_conv_s2", "fwd", shape, kernel_inputs("fwd", *shape))
-    log(f"[tcheck] sphere_conv_s2 at {WIDE_S2_SHAPES} matches sphere_conv_plain in f32 and bf16")
+        check("sphere_conv_dx_s2", "dx", shape, kernel_inputs("dx", *shape))
+    log(f"[tcheck] at {WIDE_S2_SHAPES} sphere_conv_s2 matches sphere_conv_plain and "
+        f"sphere_conv_dx_s2 matches dx_plain, in f32 and bf16")
 
     # 8. timing at the main path's batch (and the batch-8 check on the timed inputs)
     rows = []
@@ -478,7 +483,7 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
         if kind == "fwd":
             row["dense_conv_yardstick_ms"] = cuda_ms(
                 torch, dense_conv_yardstick(torch, inputs[0], cout, stride), warmup=1, iters=5)
-        elif kind == "dk" or (kind == "dx" and stride == 1):
+        else:
             row["dense_conv_yardstick_ms"] = cuda_ms(
                 torch, dense_grad_yardstick(torch, kind, inputs[0], inputs[3], stride),
                 warmup=1, iters=5)
@@ -496,6 +501,14 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
                     row[f"{alt}_ms"] = cuda_ms(torch, lambda: fn(g_, k_, tuple(x_.shape)),
                                                warmup=1, iters=5)
             del ref
+        if name in ("sphere_conv_dx_s1_triple", "sphere_conv_dx_s2"):
+            # the U GEMM's and the gather's device time per launch, the mean
+            # over 5 profiled launches (a profile of one launch missed its
+            # first kernel)
+            prof = device_profile(torch, lambda: [kern() for _ in range(5)], top=2)
+            if prof is not None:
+                row["parts_ms"] = {n.split("::", 1)[-1].split("(")[0]: ms / k
+                                   for n, ms, k in prof[2]}
         rows.append(row)
         log(f"[ttiming] {name} {kind} B{b} {h}x{w} {cin}->{cout} s{stride} "
             f"x{row['per_g_step']}/G x{row['per_d_step']}/D: kernel {row['ms']:.4f} ms, "
@@ -505,7 +518,8 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
                f"{row['dense_conv_yardstick_ms']:.4f} ms" if "dense_conv_yardstick_ms" in row
                else "")
             + "".join(f", {k[:-3]} {v:.4f} ms" for k, v in row.items()
-                      if k.startswith("sphere_conv_dx_s1")))
+                      if k.startswith("sphere_conv_dx_s1"))
+            + "".join(f", {k} {v:.4f} ms" for k, v in row.get("parts_ms", {}).items()))
         del inputs, kern, plain
     tables["train_shapes"] = rows
     log("[tcheck] at batches 2 and the main path's: " + "; ".join(

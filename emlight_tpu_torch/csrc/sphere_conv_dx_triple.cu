@@ -1,28 +1,42 @@
-// Sphere conv input gradient (dx) at stride 1 on the small maps —
-// hand-written CUDA C++ for sm_90a (H100).
+// Sphere conv input gradient (dx) as a U GEMM and a gather — hand-written
+// CUDA C++ for sm_90a (H100). Two instances of one design:
 //
-// Replaces emlight_tpu/nn/sphere_conv_vjp.py::_dx_kernel_s1 (the Pallas TPU
-// kernel B6, launched by _dx_pallas for the maps of fewer than 2048 pixels;
-// the port routes the maps below UMAJOR_MIN_PIXELS, nn/sphere_conv_kernel.py,
-// to it). It computes what that kernel computes:
+// - stride 1 on the small maps: replaces
+//   emlight_tpu/nn/sphere_conv_vjp.py::_dx_kernel_s1 (the Pallas TPU kernel
+//   B6, launched by _dx_pallas for the maps of fewer than 2048 pixels; the
+//   port routes the maps below UMAJOR_MIN_PIXELS, nn/sphere_conv_kernel.py,
+//   to it);
+// - stride 2: replaces _dx_kernel_s2 (B5, every stride-2 dx).
 //
-//   U[p, t, c]   = sum_o g[p, o] K_t[c, o]          (f32, p a flat pixel)
+// Both compute what those kernels compute. For the cotangent g (B, Ho, Wo,
+// Cout) of a stride-S conv of x (B, H, W, Cin), Ho = H / S, Wo = W / S:
+//
+//   U[p, t, c]   = sum_o g[p, o] K_t[c, o]          (f32, p a flat pixel of g)
 //   dx[r][col]   = sum over the slots m of input row r (the port's
 //                  inverse_tables: out_row i, tap t, shift s, weight w0, dead
-//                  column jdev), in slot order, of
-//                  w0 * U[(i, (col - s) mod W), t],  skipped where
-//                  (col - s) mod W == jdev or w0 == 0
+//                  output column jdev), in slot order, of
+//                  w0 * U[(i, j), t] with j = ((col - s) mod W) / S, taken
+//                  only where (col - s) mod W is a multiple of S, and skipped
+//                  where j == jdev or w0 == 0
+//
+// At S = 2, with W even, (col - s) mod W is even exactly where s has col's
+// parity: the TPU kernel's even and odd parity planes. So each input row
+// has one slot list per parity, the live slots of that parity in slot order
+// (nn/sphere_conv_kernel.py::parity_tables: at most 13 of its 26), and a
+// column's sum over its list is the sum over all its row's slots in slot
+// order, the other parity's slots adding nothing.
 //
 // What bounds it on an H100: operations, 2 * 9 * Cin * Cout flops per
-// pixel, on the tensor cores. On the small maps (4x8 to 16x32: 256 to 8192
-// flat pixels at the model's batches) the channels are wide (Cin 128-1024,
-// Cout 3-2048), so the work is few pixels times many channels. The TPU
-// kernel recomputed a U row for every slot that reads it.
+// pixel of g, on the tensor cores. On the maps it takes (4x8 to 16x32 at
+// stride 1, 256 to 8192 flat pixels at the model's batches; up to 131072
+// pixels of g, 64x128 at batch 16, at stride 2) the work is few pixels
+// against a deep K. The TPU kernels recomputed a U row for every slot that
+// reads it.
 //
 // What this design does about it: U is computed once, as one GEMM on the
 // tensor cores, and gathered by a second kernel.
-// - u_gemm_kernel: M = the B*H*W flat pixels (64 per block), N = 9 * Cin
-//   (the rows of kmat (9, Cin, Cout), 128 per block), K = Cout. Both
+// - u_gemm_kernel: M = the B*Ho*Wo flat pixels of g (64 per block), N = 9 *
+//   Cin (the rows of kmat (9, Cin, Cout), 128 per block), K = Cout. Both
 //   operands have K contiguous (g's rows, kmat's rows), so the 32 channels
 //   of a K stage come by cp.async in 16-byte chunks into a 3-stage ring
 //   (plain loads where Cout is not a multiple of the chunk: Cout = 3).
@@ -33,11 +47,15 @@
 //   added in f32 on the CUDA cores (their chained f32 accumulation does not
 //   round to nearest). U is written in f32, as the reference keeps it.
 //   Where the tiles alone give fewer than about 2 blocks per SM (the
-//   128 -> 2048 convs on the 4x8 and 8x16 maps), K is cut into n_split
-//   ranges of whole stages, each writing its own U partial.
-// - dx_gather_kernel: per (image, input row, 256 (column, 4-channel chunk)
-//   items) the row's slots from shared memory; per live slot the U chunk
+//   128 -> 2048 convs on the 4x8 and 8x16 maps; at stride 2 only batches
+//   below the training path's 16), K is cut into n_split ranges of whole
+//   stages, each writing its own U partial.
+// - dx_gather_kernel<S>: per (image, input row, parity, 256 (column,
+//   4-channel chunk) items) the row's slot list of that parity from shared
+//   memory (at S = 1 one parity, the whole row); per live slot the U chunk
 //   (the partials summed in split order), times w0, added in slot order.
+//   U is read as float4 chunks where Cin is a multiple of 4, else value by
+//   value (the Cin-6 front convs at stride 2).
 // Padded slots (w0 == 0) and the dead column are skipped, never
 // multiplied: an inf in g reaches no dx value through them. No atomics:
 // every value is summed in one fixed order, the same from run to run.
@@ -305,11 +323,14 @@ u_gemm_kernel(const T* __restrict__ g, const T* __restrict__ kmat, float* __rest
     }
 }
 
-// dx (B, H, W, Cin) from the U partials u (n_split, B*H*W, 9, Cin): block
-// (x, r, b) takes items [256 x, +256) of input row r of image b, an item a
-// (column, 4-channel chunk) pair; per live slot of row r, in slot order,
-// w0 * U (the partials summed in split order) at the slot's pixel and tap.
-template <bool VEC4>
+// dx (B, H, W, Cin) from the U partials u (n_split, B*Ho*Wo, 9, Cin), Ho =
+// H / S, Wo = W / S: block (x, r * S + pi, b) takes items [256 x, +256) of
+// the columns col = S q + pi of input row r of image b, an item a (column,
+// 4-channel chunk) pair; per live slot of table row r * S + pi (the slots
+// of input row r whose shift has parity pi; at S = 1 all of them), in slot
+// order, w0 * U (the partials summed in split order) at the slot's pixel
+// (out_row, ((col - s) mod W) / S) and tap.
+template <int S, bool VEC4>
 __global__ void __launch_bounds__(GATHER_THREADS)
 dx_gather_kernel(const float* __restrict__ u, const int* __restrict__ orow,
                  const int* __restrict__ tap, const int* __restrict__ shift,
@@ -320,10 +341,12 @@ dx_gather_kernel(const float* __restrict__ u, const int* __restrict__ orow,
   __shared__ int s_shift[MAX_FANIN];
   __shared__ int s_jdev[MAX_FANIN];
   __shared__ float s_w0[MAX_FANIN];
-  const int r = blockIdx.y;
+  const int tr = blockIdx.y;  // the table row
+  const int r = tr / S;
+  const int pi = tr - r * S;
   const int b = blockIdx.z;
   for (int m = threadIdx.x; m < fanin; m += GATHER_THREADS) {
-    const int idx = r * fanin + m;
+    const int idx = tr * fanin + m;
     s_row[m] = orow[idx];
     s_tap[m] = tap[idx];
     s_shift[m] = shift[idx];
@@ -332,27 +355,31 @@ dx_gather_kernel(const float* __restrict__ u, const int* __restrict__ orow,
   }
   __syncthreads();
 
+  const int Ho = H / S;
+  const int Wo = W / S;
   const int c4n = (Cin + 3) / 4;
   const int item = blockIdx.x * GATHER_THREADS + threadIdx.x;
-  const int col = item / c4n;
-  if (col >= W) return;
-  const int c = (item - col * c4n) * 4;
-  const size_t split_stride = (size_t)gridDim.z * H * W * 9 * Cin;
+  const int q = item / c4n;
+  if (q >= Wo) return;
+  const int col = q * S + pi;
+  const int c = (item - q * c4n) * 4;
+  const size_t split_stride = (size_t)gridDim.z * Ho * Wo * 9 * Cin;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int m = 0; m < fanin; ++m) {
     const float wm = s_w0[m];
     if (wm == 0.f) continue;  // a padded slot
-    int j = col - s_shift[m];
-    if (j < 0) j += W;
+    int d = col - s_shift[m];
+    if (d < 0) d += W;
+    const int j = d / S;  // S = 2: d is even, the slot's shift having col's parity
     if (j == s_jdev[m]) continue;  // grid_sample's zero pad: adds nothing
-    const float* src = u + ((((size_t)b * H + s_row[m]) * W + j) * 9 + s_tap[m]) * Cin + c;
+    const float* src = u + ((((size_t)b * Ho + s_row[m]) * Wo + j) * 9 + s_tap[m]) * Cin + c;
     float v[4];
     if constexpr (VEC4) {
-      const float4 q = __ldg(reinterpret_cast<const float4*>(src));
-      v[0] = q.x;
-      v[1] = q.y;
-      v[2] = q.z;
-      v[3] = q.w;
+      const float4 q4 = __ldg(reinterpret_cast<const float4*>(src));
+      v[0] = q4.x;
+      v[1] = q4.y;
+      v[2] = q4.z;
+      v[3] = q4.w;
       for (int z = 1; z < n_split; ++z) {
         const float4 q2 = __ldg(reinterpret_cast<const float4*>(src + z * split_stride));
         v[0] += q2.x;
@@ -396,16 +423,32 @@ int launch_gemm(const void* g, const void* kmat, void* u, int P, int N, int Cout
   return (int)cudaGetLastError();
 }
 
+template <int S>
+void launch_gather(bool vec4, dim3 grid, cudaStream_t st, const void* u, const void* orow,
+                   const void* tap, const void* shift, const void* w0, const void* jdev, void* dx,
+                   int H, int W, int Cin, int fanin, int n_split) {
+  if (vec4)
+    dx_gather_kernel<S, true><<<grid, GATHER_THREADS, 0, st>>>(
+        (const float*)u, (const int*)orow, (const int*)tap, (const int*)shift, (const float*)w0,
+        (const int*)jdev, (float*)dx, H, W, Cin, fanin, n_split);
+  else
+    dx_gather_kernel<S, false><<<grid, GATHER_THREADS, 0, st>>>(
+        (const float*)u, (const int*)orow, (const int*)tap, (const int*)shift, (const float*)w0,
+        (const int*)jdev, (float*)dx, H, W, Cin, fanin, n_split);
+}
+
 template <typename T>
 int launch(const void* g, const void* kmat, const void* orow, const void* tap, const void* shift,
            const void* w0, const void* jdev, void* u, void* dx, int B, int H, int W, int Cin,
-           int Cout, int fanin, int per, int n_split, void* stream) {
-  const long long P = (long long)B * H * W;
+           int Cout, int stride, int fanin, int per, int n_split, void* stream) {
+  if ((stride != 1 && stride != 2) || H < 1 || W < 1 || H % stride || W % stride)
+    return (int)cudaErrorInvalidValue;
+  const long long P = (long long)B * (H / stride) * (W / stride);
   const long long N = 9LL * Cin;
-  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || fanin < 1 || fanin > MAX_FANIN ||
-      per < 1 || per % BK || n_split < 1 || n_split > 65535 ||
-      (long long)(n_split - 1) * per >= Cout || (P + BM - 1) / BM > 65535 ||
-      N >= 0x7fffffffLL || B > 65535 || H > 65535)
+  if (B < 1 || Cin < 1 || Cout < 1 || fanin < 1 || fanin > MAX_FANIN || per < 1 || per % BK ||
+      n_split < 1 || n_split > 65535 || (long long)(n_split - 1) * per >= Cout ||
+      (P + BM - 1) / BM > 65535 || N >= 0x7fffffffLL || B > 65535 ||
+      (long long)H * stride > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const bool vec = Cout % Ring<T>::VEC == 0 && ((reinterpret_cast<uintptr_t>(g) |
@@ -414,42 +457,46 @@ int launch(const void* g, const void* kmat, const void* orow, const void* tap, c
                      : launch_gemm<T, false>(g, kmat, u, (int)P, (int)N, Cout, per, n_split, st);
   if (rc) return rc;
   const int c4n = (Cin + 3) / 4;
-  const dim3 grid((unsigned)((W * c4n + GATHER_THREADS - 1) / GATHER_THREADS), H, B);
-  if (Cin % 4 == 0 && (reinterpret_cast<uintptr_t>(dx) & 15) == 0 &&
-      (reinterpret_cast<uintptr_t>(u) & 15) == 0)
-    dx_gather_kernel<true><<<grid, GATHER_THREADS, 0, st>>>(
-        (const float*)u, (const int*)orow, (const int*)tap, (const int*)shift, (const float*)w0,
-        (const int*)jdev, (float*)dx, H, W, Cin, fanin, n_split);
+  const dim3 grid((unsigned)((W / stride * c4n + GATHER_THREADS - 1) / GATHER_THREADS),
+                  H * stride, B);
+  const bool vec4 = Cin % 4 == 0 && (reinterpret_cast<uintptr_t>(dx) & 15) == 0 &&
+                    (reinterpret_cast<uintptr_t>(u) & 15) == 0;
+  if (stride == 1)
+    launch_gather<1>(vec4, grid, st, u, orow, tap, shift, w0, jdev, dx, H, W, Cin, fanin,
+                     n_split);
   else
-    dx_gather_kernel<false><<<grid, GATHER_THREADS, 0, st>>>(
-        (const float*)u, (const int*)orow, (const int*)tap, (const int*)shift, (const float*)w0,
-        (const int*)jdev, (float*)dx, H, W, Cin, fanin, n_split);
+    launch_gather<2>(vec4, grid, st, u, orow, tap, shift, w0, jdev, dx, H, W, Cin, fanin,
+                     n_split);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface for ctypes. g (B,H,W,Cout) and kmat (9,Cin,Cout) in the
-// named dtype; inverse tables (H,fanin) int32 / f32 (w0); u an f32 scratch
-// of n_split * B*H*W * 9*Cin values (the U partials, split z over Cout
-// channels [z per, (z + 1) per), per a multiple of 32); dx (B,H,W,Cin) f32,
-// every value written. The split comes from the wrapper
-// (nn/sphere_conv_kernel.py::triple_tiles). All contiguous on the device of
-// `stream`. Returns the first nonzero cudaGetLastError() of the launches.
+// Plain C interface for ctypes. g (B,H/stride,W/stride,Cout) and kmat
+// (9,Cin,Cout) in the named dtype, stride 1 or 2 (H and W multiples of
+// it); the gather's slot tables (H,stride,fanin) int32 / f32 (w0): at
+// stride 1 the inverse tables, at stride 2 their parity lists; u an f32
+// scratch of n_split * B*(H/stride)*(W/stride) * 9*Cin values (the U
+// partials, split z over Cout channels [z per, (z + 1) per), per a multiple
+// of 32); dx (B,H,W,Cin) f32, every value written. The split comes from the
+// wrapper (nn/sphere_conv_kernel.py::triple_tiles). All contiguous on the
+// device of `stream`. Returns cudaErrorInvalidValue for what the kernels do
+// not take (another stride, H or W not a multiple of it, fanin above 64),
+// else the first nonzero cudaGetLastError() of the launches.
 extern "C" int sphere_conv_dx_triple_f32(const void* g, const void* kmat, const void* orow,
                                          const void* tap, const void* shift, const void* w0,
                                          const void* jdev, void* u, void* dx, int B, int H, int W,
-                                         int Cin, int Cout, int fanin, int per, int n_split,
-                                         void* stream) {
-  return launch<float>(g, kmat, orow, tap, shift, w0, jdev, u, dx, B, H, W, Cin, Cout, fanin, per,
-                       n_split, stream);
+                                         int Cin, int Cout, int stride, int fanin, int per,
+                                         int n_split, void* stream) {
+  return launch<float>(g, kmat, orow, tap, shift, w0, jdev, u, dx, B, H, W, Cin, Cout, stride,
+                       fanin, per, n_split, stream);
 }
 
 extern "C" int sphere_conv_dx_triple_bf16(const void* g, const void* kmat, const void* orow,
                                           const void* tap, const void* shift, const void* w0,
                                           const void* jdev, void* u, void* dx, int B, int H,
-                                          int W, int Cin, int Cout, int fanin, int per,
-                                          int n_split, void* stream) {
+                                          int W, int Cin, int Cout, int stride, int fanin,
+                                          int per, int n_split, void* stream) {
   return launch<__nv_bfloat16>(g, kmat, orow, tap, shift, w0, jdev, u, dx, B, H, W, Cin, Cout,
-                               fanin, per, n_split, stream);
+                               stride, fanin, per, n_split, stream);
 }

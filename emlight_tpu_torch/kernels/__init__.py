@@ -26,8 +26,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("sphere_conv_s1", "sphere_conv_dx_s1", "sphere_conv_dx",
-           "sphere_conv_dk", "sphere_conv_dx_triple", "dense_conv")
+SOURCES = ("sphere_conv_s1", "sphere_conv_dx_s1", "sphere_conv_dk", "sphere_conv_dx_triple",
+           "dense_conv")
 BUILD_TIMEOUT_S = 600
 
 build_log: dict[str, str] = {}  # nvcc output (ptxas register/smem report) per source

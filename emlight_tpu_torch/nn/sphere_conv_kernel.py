@@ -8,7 +8,8 @@ Kernels (``KERNELS`` maps each wrapper to its TPU kernel and source):
 - ``sphere_conv_dx_s1`` B3, dx at stride 1          (csrc/sphere_conv_dx_s1.cu)
 - ``sphere_conv_dx_s1_triple`` B6, dx at stride 1 on the small maps
                                                     (csrc/sphere_conv_dx_triple.cu)
-- ``sphere_conv_dx_s2`` B5, dx at stride 2          (csrc/sphere_conv_dx.cu)
+- ``sphere_conv_dx_s2`` B5, dx at stride 2          (csrc/sphere_conv_dx_triple.cu, the
+                                                    same kernels' stride-2 instance)
 - ``sphere_conv_dk``    B4, dK at strides 1 and 2   (csrc/sphere_conv_dk.cu)
 
 Source note. The forward kernels replace
@@ -21,11 +22,11 @@ the gnomonic sampling pattern, verified here when the tables are built:
 - the bilinear weight is one scalar w0(i, t, k) for every column except at
   most one column jdev(i, t, k) where grid_sample's zero pad kills it.
 On an H100 every one of them is bound by operations at the model's widths;
-each computes its matmul in the kernel itself: B1 and B2 (wgmma), B3, B4 and
-B6 (mma.sync) on the tensor cores, f32 as 3xTF32; B5 in f32 on the CUDA
-cores. See each .cu file's header for the design; ``s1_plan`` is B1's and
-B2's tiling and K split, ``dk_plan`` B4's grid and pixel split,
-``triple_tiles`` B6's GEMM tiles and K split.
+each computes its matmul in the kernel itself on the tensor cores, f32 as
+3xTF32: B1 and B2 (wgmma), B3, B4, B5 and B6 (mma.sync). See each .cu
+file's header for the design; ``s1_plan`` is B1's and B2's tiling and K
+split, ``dk_plan`` B4's grid and pixel split, ``triple_tiles`` B6's and B5's
+GEMM tiles and K split, ``parity_tables`` B5's slot lists.
 
 A CPU tensor takes the plain version (nn/sphere_conv.py::sphere_conv_plain,
 nn/sphere_conv_vjp.py::dx_plain and dk_plain); a CUDA tensor takes the
@@ -45,9 +46,8 @@ from .sphere_conv import sphere_conv_plain, sphere_taps
 
 __all__ = ["structured_tables", "scalar_weight_tables", "sphere_conv_s1", "sphere_conv_s2",
            "sphere_conv_dx", "sphere_conv_dx_s1", "sphere_conv_dx_s1_triple", "sphere_conv_dx_s2",
-           "sphere_conv_dk", "triple_tiles", "TriplePlan", "s1_plan", "S1Plan", "dk_plan",
-           "DKPlan",
-           "tc_width", "KERNELS", "UMAJOR_MIN_PIXELS"]
+           "sphere_conv_dk", "triple_tiles", "TriplePlan", "parity_tables", "s1_plan", "S1Plan",
+           "dk_plan", "DKPlan", "tc_width", "KERNELS", "UMAJOR_MIN_PIXELS"]
 
 # wrapper name -> (TPU kernel id, source in the repo, file:line of the TPU kernel)
 KERNELS = {
@@ -59,7 +59,7 @@ KERNELS = {
                           "emlight_tpu/nn/sphere_conv_vjp.py:199"),  # _dx_kernel_s1_umajor
     "sphere_conv_dx_s1_triple": ("B6", "emlight_tpu_torch/csrc/sphere_conv_dx_triple.cu",
                                  "emlight_tpu/nn/sphere_conv_vjp.py:159"),  # _dx_kernel_s1
-    "sphere_conv_dx_s2": ("B5", "emlight_tpu_torch/csrc/sphere_conv_dx.cu",
+    "sphere_conv_dx_s2": ("B5", "emlight_tpu_torch/csrc/sphere_conv_dx_triple.cu",
                           "emlight_tpu/nn/sphere_conv_vjp.py:293"),  # _dx_kernel_s2
     "sphere_conv_dk": ("B4", "emlight_tpu_torch/csrc/sphere_conv_dk.cu",
                        "emlight_tpu/nn/sphere_conv_vjp.py:455"),  # _dk_kernel
@@ -133,12 +133,46 @@ def scalar_weight_tables(h: int, w: int, stride: int = 1):
 
 
 @functools.lru_cache(maxsize=None)
-def _device_inverse_tables(h: int, w: int, stride: int, device: str):
-    """(out_rows, taps, shifts, w0, jdev) of inverse_tables, each (h, fanin),
-    on `device`, and fanin."""
+def parity_tables(h: int, w: int):
+    """B5's slot lists: for input row r and parity p, the live slots (w0 >
+    0) of ``inverse_tables(h, w, 2)`` whose shift s has s % 2 == p, in slot
+    order, padded with w0 = 0 slots (out row r // 2, tap 0, shift p, no dead
+    column).
+
+    With W even, an input column col receives from a slot only where (col -
+    s) mod W is even, that is where s % 2 == col % 2; so the sum over col's
+    parity list in order is the sum over all of row r's slots in order.
+
+    Returns (out_rows, taps, shifts, w0, jdev), each (h, 2, f2), and f2, the
+    longest list (13 on every map from 8x16 to 256x512)."""
     from .sphere_conv_vjp import inverse_tables
 
-    *tabs, fanin = inverse_tables(h, w, stride)
+    if h % 2 or w % 2:
+        raise ValueError(f"stride-2 slot lists need an even map, got {h}x{w}")
+    orow, taps, shifts, w0, jdev, _ = inverse_tables(h, w, 2)
+    lists = [[np.flatnonzero((w0[r] > 0) & (shifts[r] % 2 == p)) for p in (0, 1)]
+             for r in range(h)]
+    f2 = max(len(m) for row in lists for m in row)
+    tabs = (orow, taps, shifts, w0, jdev)
+    out = [np.zeros((h, 2, f2), t.dtype) for t in tabs]
+    out[0][:] = (np.arange(h) // 2)[:, None, None]  # a padded slot's out row: in range
+    out[2][:] = np.arange(2)[None, :, None]         # and its list's parity
+    out[4][:] = -1
+    for r in range(h):
+        for p, m in enumerate(lists[r]):
+            for a, t in zip(out, tabs):
+                a[r, p, :len(m)] = t[r, m]
+    return (*out, f2)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_dx_tables(h: int, w: int, stride: int, device: str):
+    """The U gather's slot tables on `device`: (out_rows, taps, shifts, w0,
+    jdev) of ``inverse_tables(h, w)`` at stride 1, each (h, fanin), or of
+    ``parity_tables(h, w)`` at stride 2, each (h, 2, f2); and fanin or f2."""
+    from .sphere_conv_vjp import inverse_tables
+
+    *tabs, fanin = inverse_tables(h, w, 1) if stride == 1 else parity_tables(h, w)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in tabs), fanin
 
 
@@ -390,6 +424,28 @@ def sphere_conv_dx_s1(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.T
     return dx
 
 
+def _dx_u_gather(g: torch.Tensor, kernel: torch.Tensor, x_shape, stride: int) -> torch.Tensor:
+    """One call of csrc/sphere_conv_dx_triple.cu at `stride` on a CUDA g:
+    the U GEMM over g's pixels in ``triple_tiles``' K splits, then the
+    gather over ``_device_dx_tables``."""
+    name = "sphere_conv_dx_s1_triple" if stride == 1 else "sphere_conv_dx_s2"
+    b, h, w, cin, cout = _check_dx(g, kernel, x_shape, stride)
+    ho, wo = h // stride, w // stride
+    (orow, tap, shift, w0, jdev), fanin = _device_dx_tables(h, w, stride, str(g.device))
+    plan = triple_tiles(b, ho, wo, cin, cout)
+    u = torch.empty(plan.n_split, b * ho * wo, 9 * cin, dtype=torch.float32, device=g.device)
+    dx = torch.empty(b, h, w, cin, dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        rc = entry("sphere_conv_dx_triple", "sphere_conv_dx_triple", g.dtype, 9, 9)(
+            g.data_ptr(), kernel.data_ptr(), orow.data_ptr(), tap.data_ptr(), shift.data_ptr(),
+            w0.data_ptr(), jdev.data_ptr(), u.data_ptr(), dx.data_ptr(), b, h, w, cin, cout,
+            stride, fanin, plan.per, plan.n_split,
+            torch.cuda.current_stream(g.device).cuda_stream,
+        )
+    raise_on(rc, name, f"g {tuple(g.shape)} {g.dtype}, cin {cin}")
+    return dx
+
+
 def sphere_conv_dx_s1_triple(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.Tensor:
     """dx (B, H, W, Cin) f32 of a stride-1 sphere conv, as ``sphere_conv_dx_s1``,
     by the small-map kernel B6: U = g K_tᵀ for every tap as one GEMM on the
@@ -404,18 +460,7 @@ def sphere_conv_dx_s1_triple(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> 
         from .sphere_conv_vjp import dx_plain
 
         return dx_plain(g, kernel, x_shape, 1)
-    b, h, w, cin, cout = _check_dx(g, kernel, x_shape, 1)
-    (orow, tap, shift, w0, jdev), fanin = _device_inverse_tables(h, w, 1, str(g.device))
-    plan = triple_tiles(b, h, w, cin, cout)
-    u = torch.empty(plan.n_split, b * h * w, 9 * cin, dtype=torch.float32, device=g.device)
-    dx = torch.empty(b, h, w, cin, dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        rc = entry("sphere_conv_dx_triple", "sphere_conv_dx_triple", g.dtype, 9, 8)(
-            g.data_ptr(), kernel.data_ptr(), orow.data_ptr(), tap.data_ptr(), shift.data_ptr(),
-            w0.data_ptr(), jdev.data_ptr(), u.data_ptr(), dx.data_ptr(), b, h, w, cin, cout,
-            fanin, plan.per, plan.n_split, torch.cuda.current_stream(g.device).cuda_stream,
-        )
-    raise_on(rc, "sphere_conv_dx_s1_triple", f"g {tuple(g.shape)} {g.dtype}, cin {cin}")
+    dx = _dx_u_gather(g, kernel, x_shape, 1)
     sphere_conv_dx_s1_triple.launches += 1
     return dx
 
@@ -424,36 +469,27 @@ def sphere_conv_dx_s2(g: torch.Tensor, kernel: torch.Tensor, x_shape) -> torch.T
     """dx (B, H, W, Cin) f32 of a stride-2 sphere conv from its cotangent g
     (B, H/2, W/2, Cout) and kernel (3, 3, Cin, Cout), both in one dtype.
 
-    CPU tensor: ``dx_plain``. CUDA tensor: the U product and the gather over
-    ``inverse_tables`` (two launches on the current stream), even and odd
-    input columns written in place; counted once in
+    CPU tensor: ``dx_plain``. CUDA tensor: B6's kernels at stride 2 (two
+    launches on the current stream): the U GEMM over g's B*(H/2)*(W/2)
+    pixels on the tensor cores, then per input row and column parity the
+    gather over that parity's slots of ``parity_tables``; counted once in
     ``sphere_conv_dx_s2.launches``.
     """
     if not on_cuda(g, "sphere_conv_dx_s2"):
         from .sphere_conv_vjp import dx_plain
 
         return dx_plain(g, kernel, x_shape, 2)
-    b, h, w, cin, cout = _check_dx(g, kernel, x_shape, 2)
-    (orow, tap, shift, w0, jdev), fanin = _device_inverse_tables(h, w, 2, str(g.device))
-    u = torch.empty(b, 9, h // 2, w // 2, cin, dtype=torch.float32, device=g.device)
-    dx = torch.empty(b, h, w, cin, dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        rc = entry("sphere_conv_dx", "sphere_conv_dx", g.dtype, 9, 7)(
-            g.data_ptr(), kernel.data_ptr(), u.data_ptr(), orow.data_ptr(), tap.data_ptr(),
-            shift.data_ptr(), w0.data_ptr(), jdev.data_ptr(), dx.data_ptr(),
-            b, h, w, cin, cout, 2, fanin, torch.cuda.current_stream(g.device).cuda_stream,
-        )
-    raise_on(rc, "sphere_conv_dx_s2", f"g {tuple(g.shape)} {g.dtype}, cin {cin}")
+    dx = _dx_u_gather(g, kernel, x_shape, 2)
     sphere_conv_dx_s2.launches += 1
     return dx
 
 
 class TriplePlan(NamedTuple):
-    """B6's GEMM grid: tiles_m blocks of bm flat pixels times tiles_n of bn
-    rows of N = 9 * Cin (tap-major: kmat's (9, Cin) rows), and K = Cout cut
-    into n_split ranges of `per` channels, a whole number of bk-channel
-    stages (the last range may be shorter), each summed into its own U
-    partial."""
+    """B6's and B5's GEMM grid: tiles_m blocks of bm flat pixels of g times
+    tiles_n of bn rows of N = 9 * Cin (tap-major: kmat's (9, Cin) rows), and
+    K = Cout cut into n_split ranges of `per` channels, a whole number of
+    bk-channel stages (the last range may be shorter), each summed into its
+    own U partial."""
     bm: int
     bn: int
     bk: int
@@ -468,11 +504,13 @@ _TRIPLE_TARGET_BLOCKS = 264  # 2 blocks per SM of an H100's 132
 
 
 def triple_tiles(b: int, h: int, w: int, cin: int, cout: int) -> TriplePlan:
-    """B6's GEMM grid for g (b, h, w, cout) and dx (b, h, w, cin): 64-pixel
-    tiles over the flat b*h*w pixels, 128-row tiles over the 9 * cin rows of
-    N, and, where those give fewer than about 2 x 132 blocks (the 128 ->
-    2048 convs on the 4x8 and 8x16 maps), K cut into enough ranges of whole
-    32-channel stages to reach that."""
+    """The U GEMM's grid for g (b, h, w, cout) and U (b, h, w, 9 * cin): h x
+    w is g's map, the input map at stride 1 (B6), half of it each way at
+    stride 2 (B5). 64-pixel tiles over the flat b*h*w pixels, 128-row tiles
+    over the 9 * cin rows of N, and, where those give fewer than about 2 x
+    132 blocks (the 128 -> 2048 convs on the 4x8 and 8x16 maps; at stride 2
+    only batches below the training path's 16), K cut into enough ranges of
+    whole 32-channel stages to reach that."""
     tiles_m, tiles_n = _cdiv(b * h * w, _TRIPLE_BM), _cdiv(9 * cin, _TRIPLE_BN)
     stages = _cdiv(cout, _TRIPLE_BK)
     want = 1

@@ -33,7 +33,7 @@ from emlight_tpu_torch.nn import dense_conv_kernel as tdk
 from emlight_tpu_torch.nn import sphere_conv_kernel as tker
 from emlight_tpu_torch.nn import sphere_conv_vjp as tvjp
 from test_torch_tensor_core_plans import generator_s1_shapes
-from torch_port_helpers import matmul_3xtf32_cut
+from torch_port_helpers import dx_emulated, matmul_3xtf32_cut
 
 DX_TOL = 1e-4                  # the card's f32 bar for dx (chip_smoke.py phase 7)
 DK_RTOL, DK_ATOL = 1e-3, 1e-4  # and for the dense layer's dK (phase 11)
@@ -41,40 +41,7 @@ SMS = 132                      # an H100's SMs
 
 
 # --- B6: U by the GEMM's steps and splits, then the slot-ordered gather ------
-
-def b6_emulated(g, k, x_shape):
-    """dx as B6 sums it: U[p, (t, c)] = Σ over ``triple_tiles``' K splits,
-    in split order, of the split's 16-channel steps of g[p] K_t[c]ᵀ in
-    3xTF32, each step from zero, added in f32; then per input row r and
-    live slot m of ``inverse_tables`` in slot order, dx[r, col] +=
-    w0 * U[(out_row, (col - shift) mod W), tap] except at the dead column."""
-    b, h, w, cout = g.shape
-    cin = x_shape[-1]
-    plan = tker.triple_tiles(b, h, w, cin, cout)
-    gf = g.reshape(-1, cout)
-    kf = k.reshape(9, cin, cout).reshape(9 * cin, cout)
-    u = None
-    for z in range(plan.n_split):
-        part = np.zeros((gf.shape[0], 9 * cin), np.float32)
-        for o0 in range(z * plan.per, min(cout, (z + 1) * plan.per), 16):
-            o = slice(o0, min(o0 + 16, cout))
-            part = part + matmul_3xtf32_cut(gf[:, o], kf[:, o].T)
-        u = part if u is None else u + part
-    u = u.reshape(b, h, w, 9, cin)
-    orow, taps, shifts, w0, jdev, fanin = tvjp.inverse_tables(h, w, 1)
-    cols = np.arange(w)
-    dx = np.zeros((b, h, w, cin), np.float32)
-    for r in range(h):
-        acc = np.zeros((b, w, cin), np.float32)
-        for m in range(fanin):
-            if w0[r, m] == 0:
-                continue
-            j = (cols - shifts[r, m]) % w
-            term = u[:, orow[r, m], j, taps[r, m]] * w0[r, m]
-            acc = np.where((j != jdev[r, m])[None, :, None], acc + term, acc)
-        dx[:, r] = acc
-    return dx
-
+# (torch_port_helpers.dx_emulated at stride 1)
 
 def _sphere_inputs(shape, cout, seed):
     rng = np.random.default_rng(seed)
@@ -95,7 +62,7 @@ B6_CASES = [((2, 8, 16, 8), 8), ((1, 4, 8, 5), 70), ((2, 8, 16, 16), 3), ((1, 6,
 def test_b6_gemm_and_gather_match_jax_pallas(shape, cout):
     k, g = _sphere_inputs(shape, cout, seed=31)
     assert shape[1] * shape[2] < jvjp._UMAJOR_MIN_PIXELS  # JAX's per-triple kernel
-    out = b6_emulated(g, k, shape)
+    out = dx_emulated(g, k, shape, 1)
     ref = np.asarray(jvjp._dx_pallas(jnp.asarray(g), jnp.asarray(k), shape, 1, interpret=True))
     np.testing.assert_allclose(out, ref, rtol=DX_TOL, atol=DX_TOL)
     # and it tracks the port's plain version (the card's oracle) as closely
@@ -117,7 +84,7 @@ def test_b6_skips_padded_slots_and_the_dead_column():
     k, g = _sphere_inputs(shape, cout, seed=32)
     g[0, 3, 5, 2] = np.inf
     with np.errstate(invalid="ignore", over="ignore"):
-        out = b6_emulated(g, k, shape)
+        out = dx_emulated(g, k, shape, 1)
     plain = tvjp.dx_plain(torch.from_numpy(g), torch.from_numpy(k), shape, 1).numpy()
     np.testing.assert_array_equal(np.isfinite(out), np.isfinite(plain))
     assert not np.isfinite(plain).all() and np.isfinite(plain).any()

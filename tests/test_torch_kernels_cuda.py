@@ -427,6 +427,95 @@ def test_dx_triple_skips_padded_slots(card):
     assert torch.equal(torch.isfinite(dx), torch.isfinite(ref))
 
 
+# B5 (the stride-2 instance of B6's kernels) at ragged widths: Cin 5, 6 and
+# 9 (the value-by-value gather), 130 (float4 chunks, N off the 128-row tile),
+# Cout 3 and 70 (a ragged K step; K cut at these batches), and
+# --crop_size 512's front conv (a 256x512 input, 6 -> 64)
+B5_SHAPES = [((2, 16, 32, 5), 3), ((2, 16, 32, 6), 70), ((3, 8, 16, 9), 70),
+             ((2, 8, 16, 130), 3), ((2, 32, 64, 130), 70), ((2, 256, 512, 6), 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout", B5_SHAPES)
+def test_dx_s2_matches_plain_at_ragged_widths(card, dtype, shape, cout):
+    x, k, g = _grad_inputs(shape, cout, 2, card, seed=11)
+    dt = getattr(torch, dtype)
+    g, k = g.to(dt), k.to(dt)
+    before = tker.sphere_conv_dx_s2.launches
+    dx = tker.sphere_conv_dx(g, k, tuple(x.shape), 2)
+    torch.cuda.synchronize()
+    assert tker.sphere_conv_dx_s2.launches == before + 1
+    assert dx.dtype == torch.float32 and dx.shape == x.shape
+    _close(dx, tvjp.dx_plain(g, k, tuple(x.shape), 2), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dx_s2_is_deterministic(card, dtype):
+    """The 32x64 128 -> 256 conv at batch 2 cuts K into U partials, summed in
+    split order by the gather: two runs, same bits."""
+    assert tker.triple_tiles(2, 16, 32, 128, 256).n_split > 1
+    x, k, g = _grad_inputs((2, 32, 64, 128), 256, 2, card, seed=12)
+    dt = getattr(torch, dtype)
+    g, k = g.to(dt), k.to(dt)
+    a = tker.sphere_conv_dx_s2(g, k, tuple(x.shape))
+    b = tker.sphere_conv_dx_s2(g, k, tuple(x.shape))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("cin", [8, 6])
+def test_dx_s2_skips_padded_slots(card, cin):
+    """An inf in g reaches no dx value through a padded (weight 0) slot or
+    the dead column, on the float4 and the value-by-value gather: wherever
+    the plain version is finite, B5 is too."""
+    x, k, g = _grad_inputs((1, 8, 16, cin), 8, 2, card)
+    g[0, 2, 5, 3] = float("inf")
+    dx = tker.sphere_conv_dx_s2(g, k, tuple(x.shape))
+    ref = tvjp.dx_plain(g, k, tuple(x.shape), 2)
+    assert torch.equal(torch.isfinite(dx), torch.isfinite(ref))
+
+
+def test_dx_s2_raises_when_the_entry_fails_and_never_takes_dx_plain(card, monkeypatch):
+    """A CUDA g takes the kernel or raises: an error code from the entry
+    point becomes a RuntimeError, counts no launch, and dx_plain is not
+    called."""
+    x, k, g = _grad_inputs((2, 16, 32, 8), 8, 2, card)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("dx_plain reached with a CUDA tensor")
+
+    monkeypatch.setattr(tker, "entry", lambda *args: (lambda *call: 1))
+    monkeypatch.setattr(tvjp, "dx_plain", no_plain)
+    before = tker.sphere_conv_dx_s2.launches
+    with pytest.raises(RuntimeError, match="sphere_conv_dx_s2 launch failed"):
+        tker.sphere_conv_dx(g, k, tuple(x.shape), 2)
+    assert tker.sphere_conv_dx_s2.launches == before
+
+
+def test_dx_triple_entry_rejects_what_the_kernels_do_not_take(card):
+    """The C entry returns cudaErrorInvalidValue (1), launching nothing, for
+    a stride other than 1 or 2, H or W not a multiple of the stride, and a
+    slot list longer than its 64 shared-memory slots."""
+    from emlight_tpu_torch.nn.kernel_launch import entry
+
+    fn = entry("sphere_conv_dx_triple", "sphere_conv_dx_triple", torch.float32, 9, 9)
+    # g, kmat, the five slot tables, u and dx: zeros, so every slot is padding
+    bufs = [torch.zeros(1 << 12, device=card) for _ in range(9)]
+    stream = torch.cuda.current_stream(card).cuda_stream
+
+    def call(h, w, stride, fanin):
+        # B, H, W, Cin, Cout, stride, fanin, per, n_split
+        return fn(*[t.data_ptr() for t in bufs], 1, h, w, 4, 4, stride, fanin, 32, 1, stream)
+
+    assert call(8, 16, 2, 13) == 0
+    torch.cuda.synchronize()
+    assert call(8, 16, 3, 13) == 1
+    assert call(8, 16, 0, 13) == 1
+    assert call(7, 16, 2, 13) == 1
+    assert call(8, 15, 2, 13) == 1
+    assert call(8, 16, 2, 65) == 1
+    assert call(8, 16, 1, 65) == 1
+
+
 # the regression step's three dense-layer shapes (48 -> 12 channels) at
 # batch 2, one at batch 16, and ragged ones: h = 8 (one row tile), h and w
 # off the 8 x 32 tile, cin 5 -> cout 3, one pixel

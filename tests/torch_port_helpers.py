@@ -1,7 +1,7 @@
 """Shared helpers of the tests/test_torch_*.py files: JAX-initialised weights
 as NumPy trees, the port's config for a JAX config, a fixture that runs a
-module's torch work on one thread, and the NumPy emulation of the tensor-core
-kernels' f32 products (3xTF32)."""
+module's torch work on one thread, the NumPy emulation of the tensor-core
+kernels' f32 products (3xTF32), and of B6's and B5's U GEMM and gather."""
 
 import dataclasses
 
@@ -14,6 +14,8 @@ import torch
 from conftest import jit0
 from emlight_tpu.train import projector as P
 from emlight_tpu_torch import config as tcfg
+from emlight_tpu_torch.nn import sphere_conv_kernel as tker
+from emlight_tpu_torch.nn import sphere_conv_vjp as tvjp
 
 
 def randomize_stats(tree, rng):
@@ -116,3 +118,59 @@ def matmul_3xtf32_cut(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     bh = tf32_cut(b)
     bl = tf32_cut(b - bh)
     return (al @ bh + ah @ bl) + ah @ bh
+
+
+def u_emulated(g: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """U (b, ho, wo, 9, cin) as csrc/sphere_conv_dx_triple.cu's GEMM forms it
+    from g (b, ho, wo, cout) and k (3, 3, cin, cout): U[p, (t, c)] = Σ over
+    ``triple_tiles``' K splits, in split order, of the split's 16-channel
+    steps of g[p] K_t[c]ᵀ in 3xTF32 (operands cut to TF32), each step from
+    zero, added in f32."""
+    b, ho, wo, cout = g.shape
+    cin = k.shape[2]
+    plan = tker.triple_tiles(b, ho, wo, cin, cout)
+    gf = g.reshape(-1, cout)
+    kf = k.reshape(9 * cin, cout)
+    u = None
+    for z in range(plan.n_split):
+        part = np.zeros((gf.shape[0], 9 * cin), np.float32)
+        for o0 in range(z * plan.per, min(cout, (z + 1) * plan.per), 16):
+            o = slice(o0, min(o0 + 16, cout))
+            part = part + matmul_3xtf32_cut(gf[:, o], kf[:, o].T)
+        u = part if u is None else u + part
+    return u.reshape(b, ho, wo, 9, cin)
+
+
+def gather_emulated(u: np.ndarray, x_shape, stride: int) -> np.ndarray:
+    """dx (b, h, w, cin) as csrc/sphere_conv_dx_triple.cu's gather sums it
+    from U: per input row r and column parity p (at stride 1 one, the whole
+    row; at stride 2 the columns 2q + p) and live slot m of the row's list
+    in slot order (``inverse_tables`` at stride 1, ``parity_tables`` at
+    stride 2), dx[r, col] += w0 * U[(out_row, ((col - shift) mod W) /
+    stride), tap] in f32, skipped at the dead column."""
+    b, h, w, cin = x_shape
+    if stride == 1:
+        *tabs, _ = tvjp.inverse_tables(h, w, 1)
+        tabs = [t[:, None] for t in tabs]
+    else:
+        *tabs, _ = tker.parity_tables(h, w)
+    orow, taps, shifts, w0, jdev = tabs
+    dx = np.zeros((b, h, w, cin), np.float32)
+    for r in range(h):
+        for p in range(stride):
+            cols = np.arange(p, w, stride)
+            acc = np.zeros((b, len(cols), cin), np.float32)
+            for m in range(orow.shape[2]):
+                if w0[r, p, m] == 0:
+                    continue
+                j = (cols - shifts[r, p, m]) % w // stride
+                term = u[:, orow[r, p, m], j, taps[r, p, m]] * w0[r, p, m]
+                acc = np.where((j != jdev[r, p, m])[None, :, None], acc + term, acc)
+            dx[:, r, p::stride] = acc
+    return dx
+
+
+def dx_emulated(g: np.ndarray, k: np.ndarray, x_shape, stride: int) -> np.ndarray:
+    """dx as B6 (stride 1) or B5 (stride 2) computes it: ``u_emulated``,
+    then ``gather_emulated``."""
+    return gather_emulated(u_emulated(g, k), x_shape, stride)
