@@ -7,8 +7,10 @@ serving — crop -> DenseNet-BC regressor -> Gaussian-splat guide -> SPADE
 generator -> 128x256 HDR env map —, SPADE GAN training — alternating
 generator and discriminator steps at batch 8 — and regression training —
 Adam steps of the DenseNet-BC regressor under the Sinkhorn + L2 loss at
-batch 16 — and holds every hand-written kernel against its plain PyTorch
-version. Phases, each of which raises on failure:
+batch 16 —, then serves from files through the inference CLIs (cli.infer,
+cli.test_regression: EXR crops and JAX-layout checkpoints in, maps,
+previews and pickles out), and holds every hand-written kernel against its
+plain PyTorch version. Phases, each of which raises on failure:
 
 1. device   card name and nvidia-smi's name and power limit
 2. build    nvcc builds every csrc/*.cu (all started together)
@@ -57,7 +59,17 @@ version. Phases, each of which raises on failure:
             profiled step: idle share, top device work
 13. rcpu    one train_step at batch 4 on a reduced config, card against the
             CPU plain path: losses and every gradient leaf (measured bar)
-14. kernels one JSON line with every ported kernel, each with its bound on
+14. cli     the inference CLIs from files at full width: 17 synthetic crop
+            .exr files (PIZ HALF, ZIP FLOAT, ZIP HALF; two at 384x512) and the
+            seeded models written as JAX-layout checkpoints; cli.infer at
+            batch 8 (B1's launches read around it, 44 per batch) and
+            cli.test_regression --render; maps equal pipeline_inference bit
+            for bit, one against the CPU plain path, the two CLIs' pickles
+            agree, every PNG decodes to its array; then infer timed on 8
+            full batches of PIZ HALF crops (B1's launches read, 44 x 8):
+            crops/s, host ms per crop (read, tonemap + resize, write),
+            pipeline_inference's CUDA-event span per batch
+15. kernels one JSON line with every ported kernel, each with its bound on
             the CUDA cores (bound_ms) and on the tensor cores (tc_bound_ms)
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
@@ -940,6 +952,313 @@ def run_regression_card_vs_cpu(torch, np, dev, seed: int) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+CLI_CROPS, CLI_LARGE = 17, (3, 11)  # 17 crops: batches 8, 8, 1; crops 3 and 11 at 384x512
+# the check set's EXR formats in turn: PIZ HALF (the Laval wire format), ZIP FLOAT, ZIP HALF
+CLI_FORMATS = (("piz", True), ("zip", False), ("zip", True))
+CLI_TIMED_BATCHES = 8  # the timed set: 8 full batches of PIZ HALF crops at 192x256
+
+
+def synthetic_crop(np, rng, h: int, w: int):
+    """A smooth background with a little noise, as a photograph has, and
+    two Laval-scale lights."""
+    yy, xx = np.mgrid[0:h, 0:w] / np.array([h, w])[:, None, None]
+    img = 0.15 + 0.1 * np.sin(6 * xx + 2 * yy + rng.uniform(0, 6))[..., None] * [1.0, 0.8, 0.6]
+    img = (img + rng.normal(0, 0.01, img.shape)).astype(np.float32)
+    for _ in range(2):
+        y, x = rng.integers(0, h - 12), rng.integers(0, w - 16)
+        img[y:y + 12, x:x + 16] = rng.uniform(20.0, 60.0, 3)
+    return img
+
+
+def read_png(path: str, np):
+    """A small stdlib PNG reader for the CLIs' previews: 8-bit RGB, no
+    interlace, filter type 0 on every row (what core/png.py writes; another
+    filter raises), one zlib stream over the IDAT chunks, CRCs checked."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, colour, _, _, interlace = hdr
+    if (depth, colour, interlace) != (8, 2, 0):
+        raise AssertionError(f"{path}: not 8-bit RGB without interlace: {hdr}")
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def run_cli(torch, np, dev, seed: int, regressor, generator, reg_cfg, proj_cfg, smi) -> dict:
+    """Phase 14: the inference CLIs on the card, at full width, from files.
+
+    17 synthetic crops (192x256, two at 384x512; PIZ HALF, ZIP FLOAT, ZIP
+    HALF in turn; HDR-range light spots) written with the port's write_exr,
+    and the seeded regressor and generator, with randomized BatchNorm running
+    statistics, written as JAX-layout checkpoints (save_checkpoint and the
+    inverse weight maps) beside one opt.json per run. Then cli.infer.main
+    with --save_pickles at batch 8 (B1's launches read around it: 44 per
+    batch, 3 batches) and cli.test_regression.main with --render. Checks:
+    the restored models equal the seeded ones bit for bit; every .exr map
+    equals pipeline_inference on the same preprocessed crops at the same
+    batches bit for bit; one crop's map against the CPU plain path at phase
+    4's bar; test_regression's pickles against infer's (rtol 1e-5, atol
+    1e-6); every PNG decodes (read_png) to its uint8 array. These 17 crops
+    check; the timing comes from a second infer run on their own: 8 full
+    batches of 8 PIZ HALF crops at 192x256 (the Laval wire format) with the
+    default outputs (.exr and .png), B1's launches read around it (44 x 8):
+    crops/s, host ms per crop by stage, pipeline_inference's CUDA-event span
+    per batch (the card's idle gaps inside the call included)."""
+    import pickle
+    import shutil
+
+    from emlight_tpu_torch.cli import _common as CC
+    from emlight_tpu_torch.cli import infer as cli_infer
+    from emlight_tpu_torch.cli import test_regression as cli_test_regression
+    from emlight_tpu_torch.core.exr import read_exr, write_exr
+    from emlight_tpu_torch.core.hdr import TONEMAP_TEST, TONEMAP_VIZ, read_hdr, resize_panorama
+    from emlight_tpu_torch.nn.sphere_conv_kernel import sphere_conv_s1
+    from emlight_tpu_torch.representation.splat import render_anchor_params
+    from emlight_tpu_torch.train import pipeline as PL
+    from emlight_tpu_torch.train import projector as PJ
+    from emlight_tpu_torch.train import regression as RG
+    from emlight_tpu_torch.train.checkpoint import (restore_generator, restore_regressor,
+                                                    save_checkpoint)
+    from emlight_tpu_torch.train.jax_weights import (densenet_tree_from_state,
+                                                     generator_tree_from_state)
+
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, "build", "cli_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    crop_dir, out_infer, out_reg = (os.path.join(work, d) for d in ("crop", "infer", "reg"))
+    os.makedirs(crop_dir)
+
+    # the models, with nontrivial running statistics (fresh ones are 0 / 1)
+    regressor, generator = copy.deepcopy(regressor), copy.deepcopy(generator)
+    gen = torch.Generator(device=dev).manual_seed(seed + 60)
+    with torch.no_grad():
+        for model in (regressor, generator):
+            for name, buf in model.named_buffers():
+                if name.endswith("mean"):
+                    buf.copy_(torch.randn(buf.shape, device=dev, generator=gen) * 0.1)
+                elif name.endswith("var"):
+                    buf.copy_(torch.rand(buf.shape, device=dev, generator=gen) + 0.5)
+    t0 = time.perf_counter()
+    params, stats = densenet_tree_from_state(regressor.state_dict())
+    reg_ckpt = save_checkpoint(os.path.join(work, "reg_run", "checkpoints"), {
+        "step": np.zeros((), np.int32), "params": params, "batch_stats": stats})
+    params, stats = generator_tree_from_state(generator.state_dict())
+    proj_ckpt = save_checkpoint(os.path.join(work, "proj_run", "checkpoints"), {
+        "step": np.zeros((), np.int32), "g_params": params, "g_stats": stats})
+    del params, stats
+    save_s = time.perf_counter() - t0
+    with open(os.path.join(work, "reg_run", "opt.json"), "w") as f:
+        json.dump({"anchors": reg_cfg.anchors.regression_anchors,
+                   "block_config": ",".join(map(str, reg_cfg.block_config)),
+                   "crop": f"{reg_cfg.crop_h},{reg_cfg.crop_w}", "clip_grad_norm": 0.0}, f)
+    with open(os.path.join(work, "proj_run", "opt.json"), "w") as f:
+        json.dump({"crop_size": proj_cfg.crop_size, "ngf": proj_cfg.ngf, "ndf": proj_cfg.ndf,
+                   "dtype": proj_cfg.dtype, "clip_grad_norm": 0.0}, f)
+
+    rng = np.random.default_rng(seed + 61)
+    names, fmt_of = [], {}
+    for i in range(CLI_CROPS):
+        h, w = (2 * reg_cfg.crop_h, 2 * reg_cfg.crop_w) if i in CLI_LARGE else (
+            reg_cfg.crop_h, reg_cfg.crop_w)
+        comp, half = CLI_FORMATS[i % len(CLI_FORMATS)]
+        names.append(f"crop{i:02d}.exr")
+        fmt_of[names[-1]] = f"{comp}-{'half' if half else 'float'}"
+        write_exr(os.path.join(crop_dir, names[-1]), synthetic_crop(np, rng, h, w), half=half,
+                  compression=comp)
+
+    # 14a. infer at batch 8, B1's launches read around it
+    batches = -(-CLI_CROPS // BATCH)
+    torch.cuda.synchronize()
+    sphere_conv_s1.launches = 0
+    st = cli_infer.main([
+        "--reg_ckpt", reg_ckpt, "--proj_ckpt", proj_ckpt,
+        "--reg_config", os.path.join(work, "reg_run"),
+        "--proj_config", os.path.join(work, "proj_run"),
+        "--crops", crop_dir, "--out_dir", out_infer, "--batch", str(BATCH), "--save_pickles"])
+    torch.cuda.synchronize()
+    cli_launches = sphere_conv_s1.launches
+    if cli_launches != LAUNCHES_PER_FORWARD * batches:
+        raise AssertionError(f"infer launched B1 {cli_launches} times, expected "
+                             f"{LAUNCHES_PER_FORWARD} x {batches}")
+    if st["crops"] != CLI_CROPS or st["batches"] != batches or len(st["device_ms"]) != batches:
+        raise AssertionError(f"infer ran {st}")
+
+    # 14b. test_regression (its default batch, 16) with --render
+    t0 = time.perf_counter()
+    cli_test_regression.main(["--ckpt", reg_ckpt, "--load_config", os.path.join(work, "reg_run"),
+                              "--crops", crop_dir, "--out_dir", out_reg, "--render"])
+    reg_cli_s = time.perf_counter() - t0
+
+    # checks: the restored models
+    for restored, seeded, what in (
+            (restore_regressor(reg_ckpt, RG.make_model(reg_cfg, device=dev, seed=seed + 62)),
+             regressor, "regressor"),
+            (restore_generator(proj_ckpt, PJ.make_models(proj_cfg, device=dev, seed=seed + 63)),
+             generator, "generator")):
+        want = seeded.state_dict()
+        for k, v in restored.state_dict().items():
+            if not torch.equal(v, want[k]):
+                raise AssertionError(f"restored {what} differs from the seeded one at {k}")
+    # every map against pipeline_inference on the same preprocessed crops
+    proj_in = proj_cfg.crop_size // 2
+    preproc = {}
+    for nm in names:
+        img, reg_in = CC.tonemapped_crop(read_hdr(os.path.join(crop_dir, nm)),
+                                         reg_cfg.crop_h, reg_cfg.crop_w)
+        preproc[nm] = (reg_in, resize_panorama(img, (proj_in, proj_in)))
+    envs = {}
+    for s in range(0, CLI_CROPS, BATCH):
+        chunk = names[s:s + BATCH]
+        env, _ = PL.pipeline_inference(regressor, generator,
+                                       np.stack([preproc[n][0] for n in chunk]),
+                                       np.stack([preproc[n][1] for n in chunk]),
+                                       reg_cfg, proj_cfg, device=dev)
+        envs.update(zip(chunk, env.cpu().numpy()))
+    torch.cuda.synchronize()
+    for nm in names:
+        stem = nm[:-len(".exr")]
+        got = read_exr(os.path.join(out_infer, f"{stem}.exr"))
+        if got.shape != envs[nm].shape or not np.array_equal(got, envs[nm]):
+            err = np.abs(got - envs[nm]).max() if got.shape == envs[nm].shape else got.shape
+            raise AssertionError(f"infer's {stem}.exr differs from pipeline_inference: {err}")
+        if not np.isfinite(got).all() or got.min() < 0 or got.max() > 50:
+            raise AssertionError(f"{stem}.exr not finite in [0, 50]")
+        png = read_png(os.path.join(out_infer, f"{stem}.png"), np)
+        if not np.array_equal(png, (TONEMAP_VIZ(got)[0] * 255).astype(np.uint8)):
+            raise AssertionError(f"{stem}.png is not the uint8 TONEMAP_VIZ of its map")
+    # one crop (a resized 384x512 one) on the CPU plain path, phase 4's bar
+    one = names[CLI_LARGE[0]]
+    reg_cpu = copy.deepcopy(regressor).to("cpu")
+    gen_cpu = copy.deepcopy(generator).to("cpu")
+    t0 = time.perf_counter()
+    env_cpu, _ = PL.pipeline_inference(reg_cpu, gen_cpu, preproc[one][0][None],
+                                       preproc[one][1][None], reg_cfg, proj_cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    del reg_cpu, gen_cpu
+    cpu_err = np.abs(envs[one] - env_cpu[0].numpy()).max()
+    np.testing.assert_allclose(envs[one], env_cpu[0].numpy(), rtol=1e-3, atol=1e-2)
+    # test_regression's pickles against infer's, and its previews
+    pred_err = 0.0
+    for nm in names:
+        stem = nm[:-len(".exr")]
+        with open(os.path.join(out_reg, f"{stem}.pickle"), "rb") as f:
+            para = pickle.load(f)
+        with open(os.path.join(out_infer, f"{stem}.pickle"), "rb") as f:
+            ref = pickle.load(f)
+        if list(para) != list(ref) or any(type(para[k]) is not type(ref[k]) for k in ref):
+            raise AssertionError(f"{stem}.pickle: keys or types differ between the CLIs")
+        for k in ref:
+            np.testing.assert_allclose(para[k], ref[k], rtol=1e-5, atol=1e-6, err_msg=f"{stem} {k}")
+            pred_err = max(pred_err, float(np.abs(para[k] - ref[k]).max()))
+        as_t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+        env = render_anchor_params(torch.softmax(as_t(para["distribution"]), -1)[None],
+                                   as_t([para["intensity"]]), as_t(para["rgb_ratio"][None]),
+                                   n=reg_cfg.anchors.regression_anchors,
+                                   intensity_scale=reg_cfg.anchors.intensity_scale)
+        want = (TONEMAP_TEST(np.maximum(env.cpu().numpy()[0], 0.0))[0] * 255).astype(np.uint8)
+        if not np.array_equal(read_png(os.path.join(out_reg, f"{stem}_env.png"), np), want):
+            raise AssertionError(f"{stem}_env.png is not its render's uint8 TONEMAP_TEST")
+
+    # 14c. the timed set: full batches in the Laval wire format, default outputs
+    timed_dir, out_timed = os.path.join(work, "timed_crop"), os.path.join(work, "timed")
+    os.makedirs(timed_dir)
+    n_timed = CLI_TIMED_BATCHES * BATCH
+    for i in range(n_timed):
+        write_exr(os.path.join(timed_dir, f"crop{i:02d}.exr"),
+                  synthetic_crop(np, rng, reg_cfg.crop_h, reg_cfg.crop_w), half=True,
+                  compression="piz")
+    torch.cuda.synchronize()
+    sphere_conv_s1.launches = 0
+    tm = cli_infer.main([
+        "--reg_ckpt", reg_ckpt, "--proj_ckpt", proj_ckpt,
+        "--reg_config", os.path.join(work, "reg_run"),
+        "--proj_config", os.path.join(work, "proj_run"),
+        "--crops", timed_dir, "--out_dir", out_timed, "--batch", str(BATCH)])
+    torch.cuda.synchronize()
+    if sphere_conv_s1.launches != LAUNCHES_PER_FORWARD * CLI_TIMED_BATCHES:
+        raise AssertionError(f"the timed infer launched B1 {sphere_conv_s1.launches} times, "
+                             f"expected {LAUNCHES_PER_FORWARD} x {CLI_TIMED_BATCHES}")
+    if tm["crops"] != n_timed or len(tm["device_ms"]) != CLI_TIMED_BATCHES:
+        raise AssertionError(f"the timed infer ran {tm}")
+    for i in range(n_timed):
+        got = read_exr(os.path.join(out_timed, f"crop{i:02d}.exr"))
+        if got.shape != envs[names[0]].shape or not np.isfinite(got).all():
+            raise AssertionError(f"the timed infer's crop{i:02d}.exr is not a finite map")
+
+    # read_hdr by format, on the check set's regressor-sized crops
+    read_ms = {}
+    for nm in names:
+        if names.index(nm) not in CLI_LARGE:
+            t0 = time.perf_counter()
+            read_hdr(os.path.join(crop_dir, nm))
+            read_ms.setdefault(fmt_of[nm], []).append((time.perf_counter() - t0) * 1e3)
+    read_ms = {k: statistics.median(v) for k, v in read_ms.items()}
+    n = tm["crops"]
+    out = {
+        "crops": n, "batch": BATCH, "batches": tm["batches"], "format": "piz-half",
+        "b1_launches": cli_launches, "timed_b1_launches": LAUNCHES_PER_FORWARD * tm["batches"],
+        "crops_per_s": n / tm["loop_s"], "loop_s": tm["loop_s"],
+        "setup_s": tm["wall_s"] - tm["loop_s"],
+        "read_ms_per_crop": 1e3 * tm["read_s"] / n, "prep_ms_per_crop": 1e3 * tm["prep_s"] / n,
+        "write_ms_per_crop": 1e3 * tm["write_s"] / n,
+        "pipeline_host_ms_per_batch": 1e3 * tm["pipeline_s"] / tm["batches"],
+        "pipeline_span_ms_per_batch": tm["device_ms"],
+        # CUDA-event spans around pipeline_inference: the card's idle gaps
+        # inside the call count too, so this is not the card's busy share
+        "pipeline_span_share": sum(tm["device_ms"]) / 1e3 / tm["loop_s"],
+        "host_io_share": (tm["read_s"] + tm["prep_s"] + tm["write_s"]) / tm["loop_s"],
+        "read_ms_by_format": read_ms, "check_set_loop_s": st["loop_s"],
+        "test_regression_s": reg_cli_s,
+        "checkpoint_save_s": save_s, "checkpoint_mb": os.path.getsize(proj_ckpt) / 2**20,
+    }
+    hw = f"{reg_cfg.crop_h}x{reg_cfg.crop_w}"
+    spans = sorted(tm["device_ms"])
+    log(f"[cli] {smi}: infer, timed set: {n} PIZ HALF crops of {hw}, {tm['batches']} batches "
+        f"of {BATCH}, .exr + .png out, from JAX-layout checkpoints: {out['crops_per_s']:.3f} "
+        f"crops/s over the loop ({tm['loop_s']:.3f} s; set-up {out['setup_s']:.3f} s: models, "
+        f"checkpoint read of {out['checkpoint_mb']:.1f} MB for G); B1 launches "
+        f"{out['timed_b1_launches']}")
+    log(f"[cli] {smi}: timed set, host ms per crop: read {out['read_ms_per_crop']:.3f}, tonemap "
+        f"+ resize {out['prep_ms_per_crop']:.3f}, write (exr, png) "
+        f"{out['write_ms_per_crop']:.3f}; pipeline_inference "
+        f"{out['pipeline_host_ms_per_batch']:.3f} ms per batch on the host clock, its CUDA-event span per batch median "
+        f"{statistics.median(spans):.3f} (min {spans[0]:.3f}, max {spans[-1]:.3f}); span share "
+        f"of the loop {out['pipeline_span_share']:.4f} (idle gaps inside the call included), "
+        f"host I/O share {out['host_io_share']:.4f}")
+    log(f"[cli] {smi}: check set ({CLI_CROPS} crops, formats mixed, with pickles): B1 launches "
+        f"{cli_launches} ({LAUNCHES_PER_FORWARD} x {batches} batches), loop {st['loop_s']:.3f} s;"
+        f" read_hdr per {hw} crop by format (median ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in read_ms.items())
+        + f"; checkpoints written in {save_s:.3f} s; test_regression --render "
+        f"{reg_cli_s:.3f} s")
+    log(f"[cli] checks: restored models equal the seeded ones; {CLI_CROPS} maps equal "
+        f"pipeline_inference bit for bit, finite in [0, 50]; {one} card vs CPU plain path "
+        f"max|err| {cpu_err:.3e} (rtol 1e-3, atol 1e-2; CPU {cpu_s:.1f} s); test_regression "
+        f"pickles vs infer's max|diff| {pred_err:.3e} (rtol 1e-5, atol 1e-6); {2 * CLI_CROPS} "
+        f"PNGs decode to their uint8 arrays; the timed set's {n} maps finite; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1176,8 +1495,11 @@ def main(argv=None) -> int:
     run_card_vs_cpu(torch, np, dev, args.seed)
     reg_entries = run_regression(torch, np, dev, args.seed, tables, save)
     run_regression_card_vs_cpu(torch, np, dev, args.seed)
+    tables["cli"] = run_cli(torch, np, dev, args.seed, regressor, generator, reg_cfg, proj_cfg,
+                            smi)
+    save()
 
-    # 14. kernels line
+    # 15. kernels line
     kernels_line = {"kernels": [{
         "name": "sphere_conv_s1",
         "id": "B1",
@@ -1185,6 +1507,7 @@ def main(argv=None) -> int:
         "source": KERNELS["sphere_conv_s1"][1],
         "replaces": KERNELS["sphere_conv_s1"][2],
         "launches": main_launches,
+        "cli_launches": tables["cli"]["b1_launches"],
         "train_launches": train["b1_train_launches"],
         "max_abs_err": worst["float32"],
         "max_err_f32": worst["float32"],

@@ -1,1 +1,1 @@
-from . import device, geometry  # noqa: F401
+from . import device, exr, geometry, hdr, msgpack, piz, png  # noqa: F401

@@ -1,7 +1,8 @@
 """Sphere / equirectangular geometry — own copy of what the port needs.
 
-Same functions and caches as emlight_tpu/core/geometry.py:53-121 (that module
-is JAX-free, but the port imports nothing of the JAX package).
+Same functions and caches as emlight_tpu/core/geometry.py:38-51, 53-121 and
+139-146 (that module is JAX-free, but the port imports nothing of the JAX
+package).
 """
 
 from __future__ import annotations
@@ -10,7 +11,18 @@ import functools
 
 import numpy as np
 
-__all__ = ["sphere_points", "geometric_points", "equirect_xyz_splat"]
+__all__ = ["sphere_points", "geometric_points", "equirect_xyz_splat", "steradian_map",
+           "rgb_to_intensity", "INTENSITY_WEIGHTS_GT"]
+
+# Luma weights used by GT extraction / light-mask construction
+# (distribution_representation.py:16-17,93; GenProjector/data.py:75).
+INTENSITY_WEIGHTS_GT = (0.3, 0.59, 0.11)
+
+
+def rgb_to_intensity(rgb, weights=INTENSITY_WEIGHTS_GT):
+    """Luma of an (..., 3) RGB array (NumPy or torch)."""
+    wr, wg, wb = weights
+    return wr * rgb[..., 0] + wg * rgb[..., 1] + wb * rgb[..., 2]
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,3 +77,14 @@ def _equirect_xyz_splat_cached(h: int, w: int) -> np.ndarray:
 def equirect_xyz_splat(h: int = 128, w: int = 256) -> np.ndarray:
     """Unit-vector grid used by the Gaussian-splat rasterizer, (h, w, 3)."""
     return _equirect_xyz_splat_cached(int(h), int(w))
+
+
+def steradian_map(height: int, width: int, multiply: bool = True) -> np.ndarray:
+    """sin(theta) row weights, optionally scaled by per-pixel area, (h, w)
+    float32."""
+    s = np.linspace(0, height, num=height, endpoint=False) + 0.5
+    s = np.sin(s / height * np.pi)
+    s = np.repeat(s[:, None], width, axis=1)
+    if multiply:
+        s = s * (((2 * np.pi) / width) * (np.pi / height))
+    return s.astype(np.float32)

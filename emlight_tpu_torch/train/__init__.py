@@ -1,1 +1,2 @@
-from . import data, jax_weights, optim, pipeline, projector, regression  # noqa: F401
+from . import (checkpoint, config_io, data, jax_weights, optim, pipeline, projector,  # noqa: F401
+               regression, torch_import)

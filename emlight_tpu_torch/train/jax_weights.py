@@ -1,6 +1,8 @@
-"""Weight bridge: JAX parameter trees -> state_dicts of the port's modules.
+"""Weight bridge: JAX parameter trees <-> state_dicts of the port's modules.
 
-The inverse direction of emlight_tpu/train/torch_import.py. Inputs are the
+The inverse direction of emlight_tpu/train/torch_import.py, and
+(``densenet_tree_from_state``, ``generator_tree_from_state``) back again, so
+a port model can be written as a JAX-layout checkpoint. Inputs are the
 JAX trees as nested mappings of NumPy arrays (for example
 ``jax.tree.map(np.asarray, params)``); nothing here imports JAX. The port's
 module names equal the JAX names, so each leaf maps by its path:
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 __all__ = ["densenet_state_from_jax", "densenet_grads_from_jax", "generator_state_from_jax",
-           "discriminator_state_from_jax"]
+           "discriminator_state_from_jax", "densenet_tree_from_state",
+           "generator_tree_from_state"]
 
 
 def _walk(tree: Mapping, prefix: tuple = ()):
@@ -34,7 +37,9 @@ def _walk(tree: Mapping, prefix: tuple = ()):
 
 
 def _tensors(sd: dict) -> dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    # (not np.ascontiguousarray: it makes the 0-d num_batches_tracked 1-d)
+    return {k: torch.from_numpy(v if v.flags.c_contiguous else v.copy(order="C"))
+            for k, v in sd.items()}
 
 
 def _f32(a: np.ndarray) -> np.ndarray:
@@ -124,3 +129,63 @@ def discriminator_state_from_jax(params: Mapping, stats: Mapping) -> dict[str, t
     for path, a in _walk(stats.get("spectral", {})):
         sd[".".join(path)] = _f32(a)
     return _tensors(sd)
+
+
+# -- the inverse direction: port state_dicts -> JAX parameter trees ------------
+
+
+def _nest(tree: dict, key: str, value: np.ndarray) -> None:
+    *mods, leaf = key.split(".")
+    for m in mods:
+        tree = tree.setdefault(m, {})
+    tree[leaf] = value
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def densenet_tree_from_state(sd: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
+    """Port DenseNet state_dict -> (params, batch_stats) NumPy trees in the
+    JAX layout; the inverse of ``densenet_state_from_jax``."""
+    params: dict = {}
+    stats: dict = {}
+    for key, t in sd.items():
+        mod, leaf = key.rsplit(".", 1)
+        a = _numpy(t)
+        if leaf == "weight":
+            if a.ndim == 4:
+                _nest(params, f"{mod}.kernel", a.transpose(2, 3, 1, 0))
+            elif a.ndim == 2:
+                _nest(params, f"{mod}.kernel", a.T)
+            else:
+                _nest(params, f"{mod}.scale", a)
+        elif leaf == "bias":
+            _nest(params, f"{mod}.bias", a)
+        elif leaf in ("running_mean", "running_var"):
+            _nest(stats, f"{mod}.{leaf[len('running_'):]}", a)
+        elif leaf != "num_batches_tracked":
+            raise KeyError(f"unexpected DenseNet state entry {key}")
+    return params, stats
+
+
+def generator_tree_from_state(sd: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
+    """Port SPADEGenerator state_dict -> (params, {"batch_stats", "spectral"})
+    NumPy trees in the JAX layout; the inverse of
+    ``generator_state_from_jax``."""
+    params: dict = {}
+    stats: dict = {"batch_stats": {}, "spectral": {}}
+    for key, t in sd.items():
+        mod, leaf = key.rsplit(".", 1)
+        a = _numpy(t)
+        if leaf == "weight":  # the encoder's SNConvs (OIHW) and its Dense layers
+            _nest(params, f"{mod}.kernel", a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T)
+        elif leaf in ("kernel", "bias"):
+            _nest(params, key, a)
+        elif leaf in ("mean", "var"):
+            _nest(stats["batch_stats"], key, a)
+        elif leaf in ("u", "v"):
+            _nest(stats["spectral"], key, a)
+        else:
+            raise KeyError(f"unexpected generator state entry {key}")
+    return params, stats

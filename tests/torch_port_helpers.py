@@ -1,5 +1,6 @@
 """Shared helpers of the tests/test_torch_*.py files: JAX-initialised weights
-as NumPy trees, the port's config for a JAX config, a fixture that runs a
+as NumPy trees, JAX train states to checkpoint, the port's config for a JAX
+config, a fixture that runs a
 module's torch work on one thread, the NumPy emulation of the tensor-core
 kernels' f32 products (3xTF32), and of B6's and B5's U GEMM and gather."""
 
@@ -13,6 +14,7 @@ import torch
 
 from conftest import jit0
 from emlight_tpu.train import projector as P
+from emlight_tpu.train import regression as R
 from emlight_tpu_torch import config as tcfg
 from emlight_tpu_torch.nn import sphere_conv_kernel as tker
 from emlight_tpu_torch.nn import sphere_conv_vjp as tvjp
@@ -53,6 +55,25 @@ def jax_generator_variables(cfg, seed: int):
     return g.apply, params, gv
 
 
+def jax_states(reg_cfg, proj_cfg):
+    """R.create_state(PRNGKey(0), reg_cfg) and P.create_state(PRNGKey(1),
+    proj_cfg), with the inits jitted at XLA opt level 0 (the JAX package
+    runs them eagerly on the CPU: 35 s against 11 s for the ngf-4
+    ProjectorState) and every BatchNorm running statistic randomized, the
+    regressor's and the generator's (fresh ones are 0 / 1); the generator's
+    spectral u and v are the init's random vectors."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(R, "run_init", lambda init_fn, *args: jit0(init_fn)(*args))
+        reg_state = R.create_state(jax.random.PRNGKey(0), reg_cfg)
+        proj_state = P.create_state(jax.random.PRNGKey(1), proj_cfg)
+    rng = np.random.default_rng(0)
+    reg_state = reg_state.replace(batch_stats=randomize_stats(
+        jax.tree.map(np.asarray, reg_state.batch_stats), rng))
+    g_stats = jax.tree.map(np.asarray, proj_state.g_stats)
+    g_stats["batch_stats"] = randomize_stats(g_stats["batch_stats"], rng)
+    return reg_state, proj_state.replace(g_stats=g_stats)
+
+
 def port_anchor_cfg(a):
     return tcfg.AnchorConfig(**dataclasses.asdict(a))
 
@@ -80,6 +101,22 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def no_persistent_cache_writes():
+    """The importing module writes no executable to the suite's persistent
+    compilation cache (tests/conftest.py), and the setting is restored after
+    the module. The JAX CLIs compile pipeline_inference at
+    tests/test_pipeline.py's config; one such executable, left in the cache
+    by tests/test_torch_cli.py, made tests/test_gspmd_isolated.py's
+    8-device child stall (XLA:CPU, 2 runs of 2), and the same child passes
+    with the cache as it was without that entry (1 run of 1)."""
+    key = "jax_persistent_cache_min_compile_time_secs"
+    old = getattr(jax.config, key)
+    jax.config.update(key, float("inf"))
+    yield
+    jax.config.update(key, old)
 
 
 def tf32(a: np.ndarray) -> np.ndarray:
