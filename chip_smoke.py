@@ -9,8 +9,10 @@ generator and discriminator steps at batch 8 — and regression training —
 Adam steps of the DenseNet-BC regressor under the Sinkhorn + L2 loss at
 batch 16 —, then serves from files through the inference CLIs (cli.infer,
 cli.test_regression: EXR crops and JAX-layout checkpoints in, maps,
-previews and pickles out), and holds every hand-written kernel against its
-plain PyTorch version. Phases, each of which raises on failure:
+previews and pickles out), trains and evaluates from files through the
+training CLIs (cli.train_regression, cli.train_projector with --resume,
+cli.test_projector, cli.eval_projector, cli.eval_metrics), and holds every
+hand-written kernel against its plain PyTorch version. Phases, each of which raises on failure:
 
 1. device   card name and nvidia-smi's name and power limit
 2. build    nvcc builds every csrc/*.cu (all started together)
@@ -69,8 +71,22 @@ plain PyTorch version. Phases, each of which raises on failure:
             full batches of PIZ HALF crops (B1's launches read, 44 x 8):
             crops/s, host ms per crop (read, tonemap + resize, write),
             pipeline_inference's CUDA-event span per batch
-15. kernels one JSON line with every ported kernel, each with its bound on
+15. tcli    training and evaluation from files at full width: a synthetic
+            Laval-layout dataset (32 PIZ HALF crops at 192x256 and warped
+            panoramas at 128x256; GT pickles of 96 and 128 anchors);
+            cli.train_regression (batch 16) and cli.train_projector (batch
+            8) for 1 epoch each, then --resume to 2 epochs from their
+            opt.json; every kernel's launches read around each run (48
+            each per regression step; G + D per GAN step); resumed runs
+            start at the saved step, restored states equal their files bit
+            for bit, metrics.csv finite; cli.test_projector (maps equal
+            inference bit for bit; B1 44 per batch), cli.eval_projector and
+            cli.eval_metrics (finite JSON lines); each loop's median step
+            (CUDA events) beside phases 8 and 12, its wait on the data
+            queue, read_hdr native beside core/exr.py
+16. kernels one JSON line with every ported kernel, each with its bound on
             the CUDA cores (bound_ms) and on the tensor cores (tc_bound_ms)
+            and its launches in phase 15 (tcli_launches)
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 run from a directory without the package beside it, it exits non-zero and
@@ -83,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -1259,6 +1276,282 @@ def run_cli(torch, np, dev, seed: int, regressor, generator, reg_cfg, proj_cfg, 
     return out
 
 
+TCLI_SAMPLES = 32  # crops and warped panoramas of the synthetic Laval-layout root
+TCLI_PROJ_BATCH = 8  # train_projector's batch, cut from 16 for the run's time (as phase 6's)
+
+
+def write_laval_roots(np, rng, work: str, reg_cfg, proj_cfg) -> tuple[str, str]:
+    """Two synthetic Laval-layout roots at full width, every image PIZ HALF
+    (the Laval wire format): TCLI_SAMPLES crops at the regressor's 192x256
+    and as many warped panoramas at the generator's 128x256, each with
+    Laval-scale lights (synthetic_crop); GT pickles with the regressor's 96
+    anchors in the first root, the projector's 128 in the second, which
+    shares the crops (a symlink). Returns (regression root, projector root)."""
+    import pickle
+
+    from emlight_tpu_torch.core.exr import write_exr
+
+    reg_root, proj_root = os.path.join(work, "laval_reg"), os.path.join(work, "laval_proj")
+    for d in ("crop", "pkl"):
+        os.makedirs(os.path.join(reg_root, d))
+    for d in ("warped", "pkl"):
+        os.makedirs(os.path.join(proj_root, d))
+    os.symlink(os.path.join(reg_root, "crop"), os.path.join(proj_root, "crop"))
+    env_h, env_w = proj_cfg.crop_size // 2, proj_cfg.crop_size
+    for i in range(TCLI_SAMPLES):
+        name = f"scene{i:02d}"
+        write_exr(os.path.join(reg_root, "crop", f"{name}.exr"),
+                  synthetic_crop(np, rng, reg_cfg.crop_h, reg_cfg.crop_w), half=True,
+                  compression="piz")
+        write_exr(os.path.join(proj_root, "warped", f"{name}.exr"),
+                  synthetic_crop(np, rng, env_h, env_w), half=True, compression="piz")
+        for root, n in ((reg_root, reg_cfg.anchors.regression_anchors),
+                        (proj_root, proj_cfg.anchors.n_anchors)):
+            dist = rng.gamma(0.3, 1.0, n).astype(np.float32)
+            rgb = rng.uniform(0.4, 0.7, 3).astype(np.float32)
+            gt = {"distribution": dist / dist.sum(),
+                  "intensity": np.float32(rng.uniform(100.0, 1000.0)),
+                  "rgb_ratio": rgb / np.linalg.norm(rgb),
+                  "ambient": (rng.uniform(0.05, 0.3, 3) * 128 * 256).astype(np.float32)}
+            with open(os.path.join(root, "pkl", f"{name}.pickle"), "wb") as f:
+                pickle.dump(gt, f)
+    return reg_root, proj_root
+
+
+def run_train_cli(torch, np, dev, seed: int, tables: dict, smi) -> dict:
+    """Phase 15: training and evaluation from files on the card, at full width.
+
+    A synthetic Laval-layout dataset (write_laval_roots), then:
+    cli.train_regression at RegressionConfig() (batch 16, 2 steps an epoch)
+    for 1 epoch and again with --resume --epochs 2 and no shape flags (its
+    opt.json supplies them); cli.train_projector at ProjectorConfig()'s
+    width (batch TCLI_PROJ_BATCH, 4 G+D steps an epoch) likewise; then
+    cli.test_projector, cli.eval_projector and cli.eval_metrics on the
+    final checkpoints. Each kernel's launches are read around each CLI: B7,
+    B7' and B8 48 each per regression step, the sphere-conv kernels
+    EXPECTED_G_STEP + EXPECTED_D_STEP per G+D step, B1 44 per test_projector
+    or eval_projector batch. Checks: every resumed run starts at the saved
+    step; a fresh train state restored from each first run's checkpoint
+    gives back that file's every leaf bit for bit (parameters, BatchNorm
+    statistics, spectral u and v, Adam moments and counts); metrics.csv has
+    one finite row per step; test_projector's maps equal inference on the
+    same batches bit for bit; the eval JSON lines are finite. Times: each
+    training loop's median step (CUDA events) beside phase 8's or 12's
+    step, its wait on the data queue per step and that wait's share of the
+    loop, and read_hdr per PIZ HALF crop, native beside core/exr.py."""
+    import csv
+    import math
+    import shutil
+
+    from emlight_tpu_torch.cli import _common as CC
+    from emlight_tpu_torch.cli import eval_metrics as cli_eval_metrics
+    from emlight_tpu_torch.cli import eval_projector as cli_eval_projector
+    from emlight_tpu_torch.cli import test_projector as cli_test_projector
+    from emlight_tpu_torch.cli import train_projector as cli_train_projector
+    from emlight_tpu_torch.cli import train_regression as cli_train_regression
+    from emlight_tpu_torch.config import ProjectorConfig, RegressionConfig
+    from emlight_tpu_torch.core.exr import read_exr
+    from emlight_tpu_torch.core.hdr import read_hdr
+    from emlight_tpu_torch.nn import dense_conv_kernel as DK
+    from emlight_tpu_torch.nn import sphere_conv_kernel as SK
+    from emlight_tpu_torch.train import projector as PJ
+    from emlight_tpu_torch.train import regression as RG
+    from emlight_tpu_torch.train.checkpoint import (read_checkpoint, restore_generator,
+                                                    restore_train_state, train_state_tree)
+    from emlight_tpu_torch.train.data import ProjectorDataset
+
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, "build", "tcli_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    reg_cfg = RegressionConfig()
+    proj_cfg = dataclasses.replace(ProjectorConfig(), batch_size=TCLI_PROJ_BATCH)
+    t0 = time.perf_counter()
+    reg_root, proj_root = write_laval_roots(np, np.random.default_rng(seed + 70), work, reg_cfg,
+                                            proj_cfg)
+    write_s = time.perf_counter() - t0
+    wrappers = {**{n: getattr(DK, n) for n in EXPECTED_REG_STEP},
+                **{n: getattr(SK, n) for n in EXPECTED_G_STEP}}
+    launches: dict = dict.fromkeys(wrappers, 0)
+
+    def counted(main, argv):
+        torch.cuda.synchronize()
+        for w_ in wrappers.values():
+            w_.launches = 0
+        t0 = time.perf_counter()
+        out = main(argv)
+        torch.cuda.synchronize()
+        got = {n: w_.launches for n, w_ in wrappers.items()}
+        for n, v in got.items():
+            launches[n] += v
+        return out, got, time.perf_counter() - t0
+
+    def same_tree(a, b, where):
+        if isinstance(a, dict):
+            if set(a) != set(b):
+                raise AssertionError(f"{where}: keys {sorted(set(a) ^ set(b))[:4]} differ")
+            for k in a:
+                same_tree(a[k], b[k], f"{where}/{k}")
+        else:
+            a, b = np.asarray(a), np.asarray(b)
+            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"{where}: the restored leaf differs from the file's")
+
+    def metrics_rows(run_dir, steps):
+        with open(os.path.join(run_dir, "metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        if [int(r["step"]) for r in rows] != list(range(1, steps + 1)):
+            raise AssertionError(f"{run_dir}/metrics.csv: steps "
+                                 f"{[r['step'] for r in rows]}, expected 1..{steps}")
+        for r in rows:
+            if not all(math.isfinite(float(v)) for v in r.values()):
+                raise AssertionError(f"{run_dir}/metrics.csv: a non-finite value in {r}")
+        return rows
+
+    def expect(got, per_step, steps, what):
+        want = {n: per_step.get(n, 0) * steps for n in wrappers}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+    out: dict = {"write_dataset_s": write_s}
+    # 15a. regression training, 1 epoch, then resumed to 2 from opt.json
+    reg_run = os.path.join(work, "reg_run")
+    reg_steps = TCLI_SAMPLES // reg_cfg.batch_size
+    runs = []
+    for argv in (["--data_root", reg_root, "--out_dir", reg_run, "--epochs", "1",
+                  "--batch_size", str(reg_cfg.batch_size)],
+                 ["--data_root", reg_root, "--out_dir", reg_run, "--epochs", "2", "--resume"]):
+        st, got, wall = counted(cli_train_regression.main, argv)
+        expect(got, EXPECTED_REG_STEP, reg_steps, f"train_regression {argv[-2:]}")
+        runs.append((st, wall))
+        if len(runs) == 1:  # the first run's checkpoint, restored into a fresh state
+            ckpt = os.path.join(reg_run, "checkpoints", "latest.msgpack")
+            fresh = RG.create_state(reg_cfg, device=dev, seed=seed + 71)
+            same_tree(read_checkpoint(ckpt),
+                      train_state_tree(restore_train_state(ckpt, fresh)), "regression")
+            del fresh
+    (r1, w1), (r2, w2) = runs
+    if (r1["start"], r1["step"], r2["restored"], r2["start"], r2["step"]) != (
+            0, reg_steps, reg_steps, reg_steps, 2 * reg_steps):
+        raise AssertionError(f"train_regression steps: {r1['step']} then resumed at "
+                             f"{r2['restored']}/{r2['start']} to {r2['step']}")
+    metrics_rows(reg_run, 2 * reg_steps)
+    out["train_regression"] = {"runs_s": [w1, w2], "step_ms": r1["step_ms"] + r2["step_ms"],
+                               "wait_s": r1["wait_s"] + r2["wait_s"],
+                               "loop_s": r1["loop_s"] + r2["loop_s"]}
+
+    # 15b. GAN training, 1 epoch, then resumed to 2 from opt.json
+    proj_run = os.path.join(work, "proj_run")
+    proj_steps = TCLI_SAMPLES // TCLI_PROJ_BATCH
+    pair = {n: EXPECTED_G_STEP[n] + EXPECTED_D_STEP[n] for n in EXPECTED_G_STEP}
+    runs = []
+    for argv in (["--data_root", proj_root, "--out_dir", proj_run, "--epochs", "1",
+                  "--batch_size", str(TCLI_PROJ_BATCH)],
+                 ["--data_root", proj_root, "--out_dir", proj_run, "--epochs", "2", "--resume"]):
+        st, got, wall = counted(cli_train_projector.main, argv)
+        expect(got, pair, proj_steps, f"train_projector {argv[-2:]}")
+        runs.append((st, wall))
+        if len(runs) == 1:
+            ckpt = os.path.join(proj_run, "checkpoints", "latest.msgpack")
+            fresh = PJ.create_state(proj_cfg, device=dev, seed=seed + 72,
+                                    steps_per_epoch=proj_steps)
+            same_tree(read_checkpoint(ckpt),
+                      train_state_tree(restore_train_state(ckpt, fresh)), "projector")
+            if fresh.d_step != proj_steps:
+                raise AssertionError(f"restored d_step {fresh.d_step}, expected {proj_steps}")
+            del fresh
+    (p1, v1), (p2, v2) = runs
+    if (p1["start"], p1["step"], p2["restored"], p2["start"], p2["step"]) != (
+            0, proj_steps, proj_steps, proj_steps, 2 * proj_steps):
+        raise AssertionError(f"train_projector steps: {p1['step']} then resumed at "
+                             f"{p2['restored']}/{p2['start']} to {p2['step']}")
+    metrics_rows(proj_run, 2 * proj_steps)
+    out["train_projector"] = {"runs_s": [v1, v2], "step_ms": p1["step_ms"] + p2["step_ms"],
+                              "wait_s": p1["wait_s"] + p2["wait_s"],
+                              "loop_s": p1["loop_s"] + p2["loop_s"]}
+
+    # 15c. test_projector, eval_projector, eval_metrics on the final checkpoints
+    proj_ckpt = os.path.join(proj_run, "checkpoints", "latest.msgpack")
+    reg_ckpt = os.path.join(reg_run, "checkpoints", "latest.msgpack")
+    tp_out = os.path.join(work, "test_projector")
+    batches = -(-TCLI_SAMPLES // 8)
+    _, got, tp_s = counted(cli_test_projector.main, [
+        "--ckpt", proj_ckpt, "--data_root", proj_root, "--load_config", proj_run,
+        "--out_dir", tp_out])
+    expect(got, {"sphere_conv_s1": LAUNCHES_PER_FORWARD}, batches, "test_projector")
+    generator = restore_generator(proj_ckpt, PJ.make_models(proj_cfg, device=dev))
+    ds = ProjectorDataset(proj_root, crop_size=proj_cfg.crop_size // 2)
+    for s in range(0, len(ds), 8):
+        samples = [ds[i] for i in range(s, min(s + 8, len(ds)))]
+        fake = PJ.inference(generator, CC.stacked(samples, dev),
+                            proj_cfg).float().cpu().numpy()
+        for i, smp in enumerate(samples):
+            got_map = read_exr(os.path.join(tp_out, f"{smp['name']}.exr"))
+            if not np.array_equal(got_map, fake[i]) or not np.isfinite(got_map).all():
+                raise AssertionError(f"test_projector's {smp['name']}.exr differs from "
+                                     f"inference on the same batch")
+    del generator
+    ep, got, ep_s = counted(cli_eval_projector.main, [
+        "--ckpt", proj_ckpt, "--data_root", proj_root, "--load_config", proj_run])
+    expect(got, {"sphere_conv_s1": LAUNCHES_PER_FORWARD}, batches, "eval_projector")
+    em, got, em_s = counted(cli_eval_metrics.main, [
+        "--ckpt", reg_ckpt, "--data_root", reg_root, "--load_config", reg_run])
+    expect(got, {}, 0, "eval_metrics")
+    for what, summary in (("eval_projector", ep), ("eval_metrics", em)):
+        vals = [v for k, m in summary.items() if k != "n_samples" for v in m.values()]
+        if summary["n_samples"] != TCLI_SAMPLES or not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"{what}: {summary}")
+    out.update(test_projector_s=tp_s, eval_projector_s=ep_s, eval_metrics_s=em_s,
+               eval_projector=ep, eval_metrics=em)
+
+    # read_hdr per PIZ HALF crop: native (the path) beside core/exr.py (the oracle)
+    crops = sorted(os.listdir(os.path.join(reg_root, "crop")))[:8]
+    read_ms = {"native": [], "python": []}
+    for nm in crops:
+        path = os.path.join(reg_root, "crop", nm)
+        for what, fn in (("native", read_hdr), ("python", read_exr)):
+            t0 = time.perf_counter()
+            img = fn(path)
+            read_ms[what].append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(read_hdr(path), img):
+            raise AssertionError(f"{nm}: the native reader differs from core/exr.py")
+    out["read_ms_piz_half"] = {k: statistics.median(v) for k, v in read_ms.items()}
+    out["launches"] = launches
+
+    hw = f"{reg_cfg.crop_h}x{reg_cfg.crop_w}"
+    for cli, ref_ms, ref_what in (
+            ("train_regression", tables["regression_step_ms"], "phase 12's train_step"),
+            ("train_projector", tables["train_steps_ms"]["G"] + tables["train_steps_ms"]["D"],
+             "phase 8's G + D step")):
+        r = out[cli]
+        n = len(r["step_ms"])
+        r["median_step_ms"] = statistics.median(r["step_ms"])
+        # the waits before each step (the last, which found the queue empty, left out)
+        waits = r["wait_s"][:n] if len(r["wait_s"]) > n else r["wait_s"]
+        r["wait_ms_per_step"] = 1e3 * sum(waits) / n
+        r["wait_share"] = sum(r["wait_s"]) / r["loop_s"]
+        log(f"[tcli] {smi}: {cli} from files, {n} steps in 2 runs ({r['runs_s'][0]:.3f} s, "
+            f"resumed {r['runs_s'][1]:.3f} s): step median {r['median_step_ms']:.3f} ms "
+            f"(CUDA events; min {min(r['step_ms']):.3f}, max {max(r['step_ms']):.3f}) beside "
+            f"{ref_what} {ref_ms:.3f} ms; wait on the data queue {r['wait_ms_per_step']:.3f} ms "
+            f"per step, {r['wait_share']:.4f} of the loop ({r['loop_s']:.3f} s)")
+    log(f"[tcli] {smi}: read_hdr per {hw} PIZ HALF crop (median of {len(crops)}): native "
+        f"{out['read_ms_piz_half']['native']:.3f} ms, core/exr.py "
+        f"{out['read_ms_piz_half']['python']:.3f} ms; test_projector {tp_s:.3f} s, "
+        f"eval_projector {ep_s:.3f} s, eval_metrics {em_s:.3f} s ({TCLI_SAMPLES} samples); "
+        f"dataset written in {write_s:.1f} s")
+    log(f"[tcli] launches over the phase: {launches}; per regression step {EXPECTED_REG_STEP}, "
+        f"per G+D step {pair}, B1 {LAUNCHES_PER_FORWARD} per test_projector / eval_projector "
+        f"batch ({batches} batches each)")
+    log(f"[tcli] checks: resumed runs start at the saved step ({reg_steps}, {proj_steps}); "
+        f"restored states equal their files bit for bit; metrics.csv {2 * reg_steps} and "
+        f"{2 * proj_steps} finite rows; test_projector's {TCLI_SAMPLES} maps equal inference "
+        f"bit for bit; eval JSON lines finite: eval_projector env_rmse mean "
+        f"{ep['env_rmse']['mean']:.4f}, eval_metrics env_rmse mean "
+        f"{em['env_rmse']['mean']:.4f}; phase took {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1498,8 +1791,10 @@ def main(argv=None) -> int:
     tables["cli"] = run_cli(torch, np, dev, args.seed, regressor, generator, reg_cfg, proj_cfg,
                             smi)
     save()
+    tables["tcli"] = run_train_cli(torch, np, dev, args.seed, tables, smi)
+    save()
 
-    # 15. kernels line
+    # 16. kernels line
     kernels_line = {"kernels": [{
         "name": "sphere_conv_s1",
         "id": "B1",
@@ -1523,6 +1818,8 @@ def main(argv=None) -> int:
         "train_tc_bound_ms": train["b1_train"]["tc_bound_ms"],
         "train_dense_conv_yardstick_ms": train["b1_train"]["dense_conv_yardstick_ms"],
     }] + train["entries"] + reg_entries}
+    for entry in kernels_line["kernels"]:  # the training CLIs' launches, phase 15
+        entry["tcli_launches"] = tables["tcli"]["launches"][entry["name"]]
     log(smi)
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

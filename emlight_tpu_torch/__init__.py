@@ -5,7 +5,10 @@ counterpart there; the JAX package is the reference the port is tested
 against. This package imports torch, numpy and the standard library only —
 never jax, flax, optax or any ``emlight_tpu`` module.
 
-- ``cli``             the inference CLIs ``infer`` and ``test_regression``
+- ``cli``             the CLIs: inference (``infer``, ``test_regression``,
+                      ``test_projector``), training (``train_regression``,
+                      ``train_projector``) and evaluation (``eval_metrics``,
+                      ``eval_projector``)
 - ``config``          frozen dataclass config tree (same defaults)
 - ``core``            sphere geometry, EXR/PIZ codec and HDR image handling,
                       msgpack codec and PNG writer (own copies or stdlib
@@ -17,12 +20,16 @@ never jax, flax, optax or any ``emlight_tpu`` module.
 - ``losses``          GAN objectives and the Sinkhorn anchor loss
 - ``kernels``         builds ``csrc/*.cu`` with nvcc for sm_90a and loads it
                       through ctypes, at first use
+- ``native``          the EXR reader and writer in C++ (g++ at first use,
+                      ctypes), which ``core/hdr.py`` reads ``.exr`` through
 - ``representation``  Gaussian-splat rasterizer
 - ``train``           entry points: serving (regression predict, generator
                       inference, the fused crop -> HDR env map pipeline), GAN
-                      and regression training steps, synthetic batches, the
-                      weight bridge to and from JAX parameter trees, JAX
-                      checkpoint read/write and reference .pth import
+                      and regression training steps, the datasets and
+                      loaders (and synthetic batches), the loop services,
+                      the weight and optimizer bridge to and from JAX trees,
+                      train-state checkpoints in the JAX package's format,
+                      reference .pth import
 
 Public functions keep the JAX layout: images are NHWC ``(B, H, W, C)``.
 Entry points run on CUDA unless the caller passes ``device="cpu"``.

@@ -1,16 +1,21 @@
-"""What the port's inference CLIs share: the refusal of --parallel, the
-device check, the regressor's config and restore (.msgpack or reference
-.pth), the crop list and the crop preprocessing."""
+"""What the port's CLIs share: the refusal of the flags whose features are
+not ported, the device check, the regressor's and projector's configs, the
+regressor's restore (.msgpack or reference .pth), the crop list and the crop
+preprocessing, dataset items as a batch on the device, the eval CLIs'
+report and a training loop's data wait."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
+import time
 
 import numpy as np
+import torch
 
-from ..config import AnchorConfig, RegressionConfig
+from ..config import AnchorConfig, ProjectorConfig, RegressionConfig
 from ..core.device import resolve_device
 from ..core.hdr import TONEMAP_INPUT, resize_panorama
 from ..train import regression as R
@@ -18,11 +23,28 @@ from ..train.checkpoint import load_checked, restore_regressor
 from ..train.jax_weights import densenet_state_from_jax
 from ..train.torch_import import import_densenet_state_dict
 
-__all__ = ["PARALLEL_NOT_PORTED", "add_device_flag", "checked_device", "regression_config",
-           "pooled_hw", "load_regressor", "crop_names", "tonemapped_crop"]
+__all__ = ["PARALLEL_NOT_PORTED", "REMAT_NOT_PORTED", "REGRESSION_BF16_NOT_PORTED",
+           "GAN_STEP_NOT_PORTED", "VGG_NOT_PORTED", "EVAL_APPLY_FAST_NOT_PORTED",
+           "add_device_flag", "checked_device", "refuse", "regression_config",
+           "projector_config", "pooled_hw", "load_regressor", "crop_names", "tonemapped_crop",
+           "stacked", "summary_line", "next_timed"]
 
 PARALLEL_NOT_PORTED = ("--parallel (the batch sharded over several cards) is not ported yet: "
                        "multi-GPU is ROADMAP.md §1 item 6; run without it on one card")
+REMAT_NOT_PORTED = ("--remat is not ported yet: the JAX package's rematerialized dense "
+                    "layers live in its concat-free buffer forward, ROADMAP.md §1 item 3; "
+                    "run without it")
+REGRESSION_BF16_NOT_PORTED = ("--dtype bfloat16 for the regressor is not ported yet "
+                              "(ROADMAP.md §1 item 7); run with --dtype float32")
+GAN_STEP_NOT_PORTED = ("--fused and --scan_steps (the fused G+D step) are not ported yet: "
+                       "ROADMAP.md §1 item 4; run the alternating G/D steps without them")
+EVAL_APPLY_FAST_NOT_PORTED = ("argument --eval_apply: invalid choice: 'fast': the concat-free "
+                              "buffer forward (nn/densenet_fast.buffer_apply) is not ported "
+                              "yet, ROADMAP.md §1 item 3; use 'standard' (the same function "
+                              "up to float reassociation)")
+VGG_NOT_PORTED = ("the VGG19 perceptual term (--vgg_npz with a file, $EMLIGHT_VGG19_NPZ, "
+                  "--vgg_random) is not ported yet: ROADMAP.md §1 item 4; run without it, "
+                  "as the JAX CLI does when no VGG19 weights are present")
 
 
 def add_device_flag(ap: argparse.ArgumentParser) -> None:
@@ -32,15 +54,26 @@ def add_device_flag(ap: argparse.ArgumentParser) -> None:
 
 
 def checked_device(ap: argparse.ArgumentParser, argv):
-    """First parse of the command line, before any file is read: --parallel
-    exits with its message, and a CUDA device that is not there raises."""
+    """First parse of the command line, before any file is read or written:
+    --parallel (where the CLI has it) exits with its message, and a CUDA
+    device that is not there raises."""
     args = ap.parse_args(argv)
-    if args.parallel:
+    if getattr(args, "parallel", False):
         ap.error(PARALLEL_NOT_PORTED)
     return resolve_device(args.device)
 
 
-def regression_config(anchors: int, crop, block_config, clip_grad_norm: float) -> RegressionConfig:
+def refuse(ap: argparse.ArgumentParser, *checks: tuple[bool, str]) -> None:
+    """Exit (argparse's usage error, code 2) with the message of the first
+    check that is set: a flag whose feature is not ported is never
+    ignored."""
+    for bad, message in checks:
+        if bad:
+            ap.error(message)
+
+
+def regression_config(anchors: int, crop, block_config, clip_grad_norm: float,
+                      **fields) -> RegressionConfig:
     crop_h, crop_w = (int(x) for x in str(crop).split(","))
     return dataclasses.replace(
         RegressionConfig(),
@@ -49,6 +82,21 @@ def regression_config(anchors: int, crop, block_config, clip_grad_norm: float) -
         crop_w=crop_w,
         block_config=tuple(int(x) for x in str(block_config).split(",")),
         clip_grad_norm=clip_grad_norm,
+        **fields,
+    )
+
+
+def projector_config(args: argparse.Namespace, **fields) -> ProjectorConfig:
+    """The ProjectorConfig of a projector CLI's shape flags (crop_size, ngf,
+    ndf, anchors, dtype, clip_grad_norm); env maps are crop_size/2 x
+    crop_size."""
+    return dataclasses.replace(
+        ProjectorConfig(),
+        crop_size=args.crop_size, ngf=args.ngf, ndf=args.ndf, dtype=args.dtype,
+        clip_grad_norm=args.clip_grad_norm,
+        anchors=AnchorConfig(n_anchors=args.anchors, env_h=args.crop_size // 2,
+                             env_w=args.crop_size),
+        **fields,
     )
 
 
@@ -84,3 +132,40 @@ def tonemapped_crop(img: np.ndarray, crop_h: int, crop_w: int) -> tuple[np.ndarr
     if reg_in.shape[:2] != (crop_h, crop_w):
         reg_in = resize_panorama(img, (crop_w, crop_h))
     return img, reg_in
+
+
+def stacked(samples: list[dict], device) -> dict:
+    """A list of dataset items as one batch of tensors on `device` (the
+    names left out)."""
+    return {k: torch.as_tensor(np.stack([smp[k] for smp in samples]), device=device)
+            for k in samples[0] if k != "name"}
+
+
+def summary_line(acc: dict[str, list], count: int, out: str | None, width: int) -> dict:
+    """The eval CLIs' report: a table of each metric's mean, median and p90
+    over the samples, then ONE JSON line of the same (keys sorted, as the
+    JAX CLIs' jitted metric dicts come back), also written to `out` if
+    given. Returns the JSON line's dict."""
+    summary: dict = {"n_samples": count}
+    print(f"\n{'metric':<{width}} {'mean':>10} {'median':>10} {'p90':>10}")
+    for k in sorted(acc):
+        v = np.concatenate(acc[k])
+        summary[k] = {"mean": float(v.mean()), "median": float(np.median(v)),
+                      "p90": float(np.percentile(v, 90))}
+        print(f"{k:<{width}} {v.mean():>10.4f} {np.median(v):>10.4f} "
+              f"{np.percentile(v, 90):>10.4f}")
+    line = json.dumps(summary)
+    print(line)
+    if out:
+        with open(out, "w") as f:
+            f.write(line + "\n")
+    return summary
+
+
+def next_timed(it, waits: list[float]):
+    """next(it, None), its wait on the host clock appended to `waits` (a
+    training loop's wait on its data queue)."""
+    t0 = time.perf_counter()
+    item = next(it, None)
+    waits.append(time.perf_counter() - t0)
+    return item

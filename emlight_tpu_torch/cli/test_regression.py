@@ -27,8 +27,8 @@ from ..core.png import write_png
 from ..representation.splat import render_anchor_params
 from ..train import regression as R
 from ..train.config_io import apply_saved_defaults
-from ._common import (add_device_flag, checked_device, crop_names, load_regressor,
-                      regression_config, tonemapped_crop)
+from ._common import (EVAL_APPLY_FAST_NOT_PORTED, add_device_flag, checked_device, crop_names,
+                      load_regressor, refuse, regression_config, tonemapped_crop)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -43,11 +43,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--render", action="store_true", help="also dump env-map previews")
     ap.add_argument("--parallel", action="store_true",
                     help="not ported yet (multi-GPU, ROADMAP.md §1 item 6): exits")
-    ap.add_argument("--eval_apply", choices=("standard",), default="standard",
+    ap.add_argument("--eval_apply", choices=("fast", "standard"), default="standard",
                     help="eval forward: 'standard', the reference-shaped DenseNet. The "
                          "JAX package's default 'fast' (the concat-free buffer forward, "
                          "nn/densenet_fast.buffer_apply: the same function up to float "
-                         "reassociation) is not ported yet (ROADMAP.md §1 item 3)")
+                         "reassociation) is not ported yet (ROADMAP.md §1 item 3) and exits")
     ap.add_argument("--block_config", default="16,16,16")
     ap.add_argument("--crop", default="192,256")
     ap.add_argument("--clip_grad_norm", type=float, default=0.0,
@@ -65,6 +65,7 @@ def main(argv=None) -> None:
     dev = checked_device(ap, argv)
     apply_saved_defaults(ap, argv, exclude=("out_dir",))
     args = ap.parse_args(argv)
+    refuse(ap, (args.eval_apply == "fast", EVAL_APPLY_FAST_NOT_PORTED))
 
     cfg = regression_config(args.anchors, args.crop, args.block_config, args.clip_grad_norm)
     regressor = load_regressor(args.ckpt, cfg, dev)

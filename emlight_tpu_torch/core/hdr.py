@@ -2,9 +2,13 @@
 
 The port's own copy of emlight_tpu/core/hdr.py, with two changes:
 
-- read_hdr / write_hdr have no branch for the JAX package's optional C++
-  loader: .exr goes through the port's codec (core/exr.py); other formats
-  (.hdr) keep the lazy cv2 / imageio import;
+- read_hdr / write_hdr route .exr through the port's native codec
+  (emlight_tpu_torch/native, built with g++ at first use), as the JAX
+  package routes it through its own, but with no fallback: a failed build
+  or a file the native decoder refuses raises. The pure-Python codec
+  (core/exr.py) stays the oracle and the reader of other channel sets
+  (``read_exr(path, channels=...)``). Other formats (.hdr) keep the lazy
+  cv2 / imageio import;
 - resize_panorama computes OpenCV's INTER_AREA itself, in NumPy, as
   separable per-axis weight matrices (the JAX function calls cv2.resize;
   the port does not depend on OpenCV).
@@ -22,7 +26,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from . import exr as _exr
+from .. import native
 from .geometry import steradian_map
 
 __all__ = [
@@ -42,9 +46,9 @@ __all__ = [
 
 
 def read_hdr(path: str) -> np.ndarray:
-    """Read an HDR image (.exr via the port's codec, else cv2/imageio) as (H,W,3) float32."""
+    """Read an HDR image (.exr via the native codec, else cv2/imageio) as (H,W,3) float32."""
     if path.lower().endswith(".exr"):
-        return _exr.read_exr(path)
+        return native.read_exr(path)
     try:
         import cv2
 
@@ -59,8 +63,10 @@ def read_hdr(path: str) -> np.ndarray:
 
 
 def write_hdr(path: str, data: np.ndarray) -> None:
+    """.exr: an (H, W, 3) image through the native writer (ZIP, FLOAT);
+    else imageio."""
     if path.lower().endswith(".exr"):
-        _exr.write_exr(path, data)
+        native.write_exr(path, data)
     else:
         import imageio
 

@@ -1,9 +1,10 @@
-"""Run-config reload: a training run's opt.json snapshot as argparse defaults.
+"""Run-config persistence and reload: a training run's opt.json snapshot,
+and that snapshot as argparse defaults.
 
-The port's own copy of ``load_run_config``, ``apply_saved_defaults`` and
-``report_overrides`` (emlight_tpu/train/config_io.py:38-86). Every train CLI
-of the JAX package snapshots its resolved argparse namespace to
-{out_dir}/opt.json; ``--load_config PATH`` (or ``--resume`` when a snapshot
+The port's own copy of emlight_tpu/train/config_io.py. Every train CLI
+snapshots its resolved argparse namespace to {out_dir}/opt.json (plus a
+human-readable opt.txt) with ``save_run_config``, byte for byte what the
+JAX package writes; ``--load_config PATH`` (or ``--resume`` when a snapshot
 already exists in --out_dir) re-applies the saved values as argparse
 *defaults*, so the original run's configuration is reproduced unless a flag
 is explicitly overridden on the command line.
@@ -15,10 +16,22 @@ import argparse
 import json
 import os
 
-__all__ = ["load_run_config", "apply_saved_defaults", "report_overrides"]
+__all__ = ["save_run_config", "load_run_config", "apply_saved_defaults", "report_overrides"]
 
 # per-invocation actions that must never be replayed from a snapshot
 _EXCLUDED = {"load_config", "resume"}
+
+
+def save_run_config(out_dir: str, args: argparse.Namespace) -> str:
+    """Write opt.json + opt.txt under out_dir; returns the json path."""
+    os.makedirs(out_dir, exist_ok=True)
+    d = {k: v for k, v in sorted(vars(args).items()) if k not in _EXCLUDED}
+    path = os.path.join(out_dir, "opt.json")
+    with open(path, "w") as f:
+        json.dump(d, f, indent=2)
+    with open(os.path.join(out_dir, "opt.txt"), "w") as f:
+        f.writelines(f"{k}: {v}\n" for k, v in d.items())
+    return path
 
 
 def load_run_config(path: str) -> dict:

@@ -1,8 +1,11 @@
 """Weight bridge: JAX parameter trees <-> state_dicts of the port's modules.
 
 The inverse direction of emlight_tpu/train/torch_import.py, and
-(``densenet_tree_from_state``, ``generator_tree_from_state``) back again, so
-a port model can be written as a JAX-layout checkpoint. Inputs are the
+(``densenet_tree_from_state``, ``generator_tree_from_state``,
+``discriminator_tree_from_state``) back again, so a port model can be
+written as a JAX-layout checkpoint. ``adam_tree_from_state`` and
+``adam_state_from_tree`` carry a ``torch.optim.Adam``'s moments and count
+to and from optax.adam's ``{count, mu, nu}`` through the same maps. Inputs are the
 JAX trees as nested mappings of NumPy arrays (for example
 ``jax.tree.map(np.asarray, params)``); nothing here imports JAX. The port's
 module names equal the JAX names, so each leaf maps by its path:
@@ -25,7 +28,8 @@ import torch
 
 __all__ = ["densenet_state_from_jax", "densenet_grads_from_jax", "generator_state_from_jax",
            "discriminator_state_from_jax", "densenet_tree_from_state",
-           "generator_tree_from_state"]
+           "generator_tree_from_state", "discriminator_tree_from_state",
+           "adam_tree_from_state", "adam_state_from_tree"]
 
 
 def _walk(tree: Mapping, prefix: tuple = ()):
@@ -189,3 +193,78 @@ def generator_tree_from_state(sd: Mapping[str, torch.Tensor]) -> tuple[dict, dic
         else:
             raise KeyError(f"unexpected generator state entry {key}")
     return params, stats
+
+
+def discriminator_tree_from_state(sd: Mapping[str, torch.Tensor]) -> tuple[dict, dict]:
+    """Port MultiscaleDiscriminator state_dict -> (params, {"spectral"})
+    NumPy trees in the JAX layout; the inverse of
+    ``discriminator_state_from_jax``."""
+    params: dict = {}
+    stats: dict = {"spectral": {}}
+    for key, t in sd.items():
+        leaf = key.rsplit(".", 1)[1]
+        if leaf in ("kernel", "bias"):
+            _nest(params, key, _numpy(t))
+        elif leaf in ("u", "v"):
+            _nest(stats["spectral"], key, _numpy(t))
+        else:
+            raise KeyError(f"unexpected discriminator state entry {key}")
+    return params, stats
+
+
+# -- optimizer state: torch.optim.Adam <-> optax.adam's ScaleByAdamState -------
+
+
+def adam_tree_from_state(opt: torch.optim.Adam, named_params, count: int,
+                         params_tree_of) -> dict:
+    """optax.adam's ``{count, mu, nu}`` of a torch Adam.
+
+    ``named_params``: the model's (name, parameter) pairs; ``params_tree_of``
+    maps {name: tensor} to the JAX params tree (the model's
+    ``*_tree_from_state``, first element). Torch keeps the moments per
+    parameter as ``exp_avg`` / ``exp_avg_sq`` (optax's mu / nu, the same
+    arithmetic) and its step as a float per parameter; optax keeps one int32
+    count, written here as `count`. A parameter without Adam state (a fresh
+    optimizer) has zero moments, as optax's init.
+    """
+    mu, nu = {}, {}
+    for name, p in named_params:
+        st = opt.state.get(p, {})
+        mu[name] = st.get("exp_avg", torch.zeros_like(p))
+        nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+    return {"count": np.asarray(count, np.int32), "mu": params_tree_of(mu),
+            "nu": params_tree_of(nu)}
+
+
+def adam_state_from_tree(opt: torch.optim.Adam, named_params, tree: Mapping,
+                         state_of, source: str) -> int:
+    """Load optax.adam's ``{count, mu, nu}`` into a torch Adam; returns the
+    count.
+
+    ``state_of`` maps a JAX params-shaped tree to {name: tensor} in the
+    port's layout (the model's ``*_state_from_jax``). A count of 0 with zero
+    moments leaves the optimizer fresh. A moment whose name or shape differs
+    from the parameter's raises ValueError naming both.
+    """
+    count = int(np.asarray(tree["count"]))
+    mu, nu = state_of(tree["mu"]), state_of(tree["nu"])
+    named = dict(named_params)
+    for what, moments in (("mu", mu), ("nu", nu)):
+        for name in [*named, *(k for k in moments if k not in named)]:
+            a = tuple(named[name].shape) if name in named else None
+            b = tuple(moments[name].shape) if name in moments else None
+            if a != b:
+                raise ValueError(
+                    f"checkpoint {source} does not match the optimizer at {what}/{name}: "
+                    f"parameter {'missing' if a is None else a} vs checkpoint "
+                    f"{'missing' if b is None else b}")
+    opt.state.clear()
+    if count == 0 and not any(bool(m.any()) for m in (*mu.values(), *nu.values())):
+        return 0
+    for name, p in named.items():
+        opt.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name].to(device=p.device, dtype=p.dtype).clone(),
+            "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype).clone(),
+        }
+    return count

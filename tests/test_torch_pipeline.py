@@ -149,10 +149,10 @@ def test_pipeline_rejects_models_on_another_device(models):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port, the CLIs included, imports nothing of JAX
-    or the JAX package, and nothing the card's machine lacks (msgpack, PIL,
-    cv2, imageio: the port has its own msgpack codec, PNG writer and area
-    resize)."""
+    """Every module of the port, the CLIs, the loop services and the native
+    EXR codec included, imports nothing of JAX or the JAX package, and
+    nothing the card's machine lacks (msgpack, PIL, cv2, imageio: the port
+    has its own msgpack codec, PNG writer and area resize)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import emlight_tpu_torch
@@ -160,8 +160,11 @@ def test_port_imports_nothing_of_jax():
                                                        "emlight_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        assert "emlight_tpu_torch.cli.infer" in names, names
-        assert "emlight_tpu_torch.cli.test_regression" in names, names
+        for cli in ("infer", "test_regression", "train_regression", "train_projector",
+                    "test_projector", "eval_projector", "eval_metrics"):
+            assert f"emlight_tpu_torch.cli.{cli}" in names, names
+        for mod in ("native", "train.loop", "train.data", "train.checkpoint"):
+            assert f"emlight_tpu_torch.{mod}" in names, names
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "emlight_tpu",
                                             "msgpack", "PIL", "cv2", "imageio"))
