@@ -11,8 +11,12 @@ batch 16 —, then serves from files through the inference CLIs (cli.infer,
 cli.test_regression: EXR crops and JAX-layout checkpoints in, maps,
 previews and pickles out), trains and evaluates from files through the
 training CLIs (cli.train_regression, cli.train_projector with --resume,
-cli.test_projector, cli.eval_projector, cli.eval_metrics), and holds every
-hand-written kernel against its plain PyTorch version. Phases, each of which raises on failure:
+cli.test_projector, cli.eval_projector, cli.eval_metrics), extracts anchor
+GT from panorama files (cli.extract_distribution), and holds every
+hand-written kernel against its plain PyTorch version. The regressor runs
+as the JAX package runs it by default: the concat-free buffer forwards
+(nn/densenet_fast.py) in serving and training. Phases, each of which raises
+on failure:
 
 1. device   card name and nvidia-smi's name and power limit
 2. build    nvcc builds every csrc/*.cu (all started together)
@@ -20,15 +24,18 @@ hand-written kernel against its plain PyTorch version. Phases, each of which rai
             distinct main-path shape, f32 (TF32 off) and bf16, at batch 2
             (and again at the main path's batch in phase 5)
 4. slice    4 requests of batch 8 through pipeline_inference, with the
-            kernel's launch count read around them (44 per request); env maps
+            kernels' launch counts read around them (B1 44 per request; B7 48,
+            the regressor's buffer eval forward); env maps
             checked; one batch-1 request compared with the same modules on
             the CPU (plain path)
 5. timing   CUDA events, median of 10 after warm-up: per-shape kernel (f32
             and bf16) vs plain version, its bounds on the CUDA cores and on
             the tensor cores (tc) and cuDNN's dense 3x3 conv of the same size
-            (a yardstick, not the same function); regressor, generator and
-            pipeline at batch 8; one profiled request: device busy time and
-            the top device work
+            (a yardstick, not the same function); the regressor's three eval
+            forwards at batch 8 (standard, buffer, baked: heads checked
+            against the standard's, baked equal to buffer bit for bit),
+            generator and pipeline at batch 8; one profiled request: device
+            busy time and the top device work
 6. train    3 alternating generator + discriminator steps of batch 8
             (create_state, ProjectorConfig(), VGG off), every kernel's launch
             count read around each step; losses finite, parameters, D's u and
@@ -50,15 +57,20 @@ hand-written kernel against its plain PyTorch version. Phases, each of which rai
 9. tcpu     one G step and one D step at batch 2 on a reduced config, card
             against the CPU plain path: losses, and every gradient leaf
             within a bar measured from the CPU's own spread under a jitter
-10. rtrain  3 regression train_steps of batch 16 (RegressionConfig()), the
-            dense-conv kernels' launches read around each (48 each); metrics
+10. rtrain  3 regression train_steps of batch 16 (RegressionConfig(), the
+            default train_forward "buffer"), the dense-conv kernels'
+            launches read around each (48 each); metrics
             finite, parameters and running variances changed; then 10 steps
             on one batch, the loss falls
 11. rcheck  B7, B7' (dx, da, db) and B8 vs their plain versions at the
             path's shapes at batch 2 and 16 and two ragged ones, f32 and bf16
 12. rtiming per shape: kernel, plain version, cuDNN call, bounds; the step at
             batch 16, with the allocator's calls over it (as in phase 8); one
-            profiled step: idle share, top device work
+            profiled step: idle share, top device work; then the step's four
+            routes (train_forward buffer / standard, f32 / bf16): 48 launches
+            each of B7, B7', B8 per step asserted, time, peak memory, one
+            profiled step each; the buffer step's gradients against the
+            standard step's (f32, measured bar), every route's losses
 13. rcpu    one train_step at batch 4 on a reduced config, card against the
             CPU plain path: losses and every gradient leaf (measured bar)
 14. cli     the inference CLIs from files at full width: 17 synthetic crop
@@ -76,7 +88,8 @@ hand-written kernel against its plain PyTorch version. Phases, each of which rai
             panoramas at 128x256; GT pickles of 96 and 128 anchors);
             cli.train_regression (batch 16) and cli.train_projector (batch
             8) for 1 epoch each, then --resume to 2 epochs from their
-            opt.json; every kernel's launches read around each run (48
+            opt.json, and one train_regression --dtype bfloat16 epoch;
+            every kernel's launches read around each run (48
             each per regression step; G + D per GAN step); resumed runs
             start at the saved step, restored states equal their files bit
             for bit, metrics.csv finite; cli.test_projector (maps equal
@@ -84,9 +97,15 @@ hand-written kernel against its plain PyTorch version. Phases, each of which rai
             cli.eval_metrics (finite JSON lines); each loop's median step
             (CUDA events) beside phases 8 and 12, its wait on the data
             queue, read_hdr native beside core/exr.py
-16. kernels one JSON line with every ported kernel, each with its bound on
+16. extract anchor GT from 64 synthetic PIZ HALF panoramas at 128x256
+            through cli.extract_distribution (batch 16, 128 anchors):
+            panoramas/s, host load_batch ms per batch, the card's extraction
+            ms per batch; pickles against extract_anchors on the CPU; the
+            anchor sums as index_add_ beside the one-hot matmul
+17. kernels one JSON line with every ported kernel, each with its bound on
             the CUDA cores (bound_ms) and on the tensor cores (tc_bound_ms)
-            and its launches in phase 15 (tcli_launches)
+            and its launches in phase 15 (tcli_launches; B7's in serving,
+            serving_launches)
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 run from a directory without the package beside it, it exits non-zero and
@@ -735,16 +754,18 @@ def run_regression(torch, np, dev, seed: int, tables: dict, save) -> list:
                                        (cfg.crop_h, cfg.crop_w), seed=s)
         return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
 
-    # 10. the training path: counts set to 0 just before each step, read after
+    # 10. the training path (the default train_forward, "buffer": the
+    # concat-free forward with its block backward): counts set to 0 just
+    # before each step, read after
     state = TR.create_state(cfg, device=dev, seed=seed + 40)
     model = state.model
-    seen: list = []  # (B, H, W, Cin, Cout) of every fused conv of one step
-    hooks = [m.register_forward_hook(
-        lambda mod, inp, out: seen.append((out.shape[0], out.shape[2], out.shape[3],
-                                           out.shape[1], 12)))
-        for n, m in model.named_modules() if "denselayer" in n and n.endswith("conv1")]
+    # (B, H, W, Cin, Cout) of every fused conv of one step: each block's
+    # layers at its map, the bottleneck's 48 channels -> growth
+    seen = [(REG_BATCH, cfg.crop_h >> i, cfg.crop_w >> i, 4 * cfg.growth_rate, cfg.growth_rate)
+            for i, n_layers in enumerate(cfg.block_config) for _ in range(n_layers)]
     batches = [make_batch(seed + 200 + i) for i in range(REG_STEPS)]
     log(f"[rtrain] create_state: {sum(p.numel() for p in model.parameters())} parameters, "
+        f"train_forward {cfg.train_forward}, "
         f"batch {REG_BATCH}, crop {cfg.crop_h}x{cfg.crop_w}, blocks {cfg.block_config}, "
         f"growth {cfg.growth_rate}, {cfg.anchors.regression_anchors} anchors, Sinkhorn blur "
         f"{cfg.sinkhorn.blur} x{cfg.sinkhorn.n_iters}")
@@ -776,12 +797,9 @@ def run_regression(torch, np, dev, seed: int, tables: dict, save) -> list:
         log(f"[rtrain] step {step}: " + ", ".join(f"{k} {v.item():.6g}"
                                                   for k, v in sorted(metrics.items()))
             + f"; parameters moved {moved}/{len(before)}")
-        if step == 0:
-            for h_ in hooks:
-                h_.remove()
     del before
     if len(seen) != EXPECTED_REG_STEP["dense_conv_fwd"]:
-        raise AssertionError(f"hooks saw {len(seen)} dense layers, expected 48")
+        raise AssertionError(f"{len(seen)} dense layers, expected 48")
     log(f"[rtrain] {REG_STEPS} steps, kernel launches {totals} ({EXPECTED_REG_STEP} per "
         f"step); every running variance changed in every step")
     fall = [TR.train_step(state, batches[0])["loss"].item() for _ in range(REG_FALL_STEPS)]
@@ -906,6 +924,7 @@ def run_regression(torch, np, dev, seed: int, tables: dict, save) -> list:
             log(f"[rtiming]   {ms:9.3f} ms  {ms / busy_ms:.4f}  x{n:<4d} {name[:100]}")
         tables["regression_profile"] = {"wall_ms": wall_ms, "busy_ms": busy_ms,
                                         "top": [list(r) for r in ranked]}
+    tables["regression_routes"] = regression_routes(torch, dev, seed, cfg, batches[0], wrappers)
     save()
 
     entries = []
@@ -921,6 +940,86 @@ def run_regression(torch, np, dev, seed: int, tables: dict, save) -> list:
             "library_ms": v["library_ms"],
         })
     return entries
+
+
+def regression_routes(torch, dev, seed: int, cfg, batch: dict, wrappers: dict) -> dict:
+    """Phase 12, continued: the regression step's four routes, train_forward
+    "buffer" (the default: the concat-free forward, nn/densenet_fast.py) and
+    "standard" (the DenseNet module's graph), each in float32 and bfloat16,
+    each from one seeded state on one batch of REG_BATCH: B7, B7' and B8
+    launch 48 times each per step on every route (asserted); the step's time
+    (CUDA events, median of 5), its peak memory, one profiled step (idle
+    share). Checks: every route's losses within 2e-2 relative of the
+    float32 standard step's; the buffer step's float32 gradients against
+    the standard step's, every leaf within the larger of GRAD_REL and
+    GRAD_SPREAD times the standard step's own spread under a
+    JITTER-relative jitter of the crop (phase 9's bar), bfloat16's worst
+    leaf logged. Returns the rows by route."""
+    from emlight_tpu_torch.train import regression as TR
+
+    names = list(EXPECTED_REG_STEP)
+    gen = torch.Generator(device=dev).manual_seed(seed + 43)
+    jittered = dict(batch, crop=batch["crop"] * (
+        1 + JITTER * torch.randn(batch["crop"].shape, device=dev, generator=gen)))
+    rows, grads, losses = {}, {}, {}
+    for dt in ("float32", "bfloat16"):
+        for tf in ("buffer", "standard"):
+            st = TR.create_state(dataclasses.replace(cfg, dtype=dt, train_forward=tf),
+                                 device=dev, seed=seed + 41)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for w_ in wrappers.values():
+                w_.launches = 0
+            metrics = TR.train_step(st, batch)
+            torch.cuda.synchronize()
+            got = {n: wrappers[n].launches for n in names}
+            if got != EXPECTED_REG_STEP:
+                raise AssertionError(f"{tf} {dt} step: launches {got}, expected "
+                                     f"{EXPECTED_REG_STEP}")
+            losses[(tf, dt)] = {k: v.item() for k, v in metrics.items()}
+            grads[(tf, dt)] = {n: p.grad.float().clone() for n, p in st.model.named_parameters()}
+            row = {"launches": got, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "ms": cuda_ms(torch, lambda: TR.train_step(st, batch), warmup=1, iters=5)}
+            prof = device_profile(torch, lambda: TR.train_step(st, batch), top=4)
+            if prof is not None:
+                row.update(wall_ms=prof[0], busy_ms=prof[1], idle_share=1 - prof[1] / prof[0],
+                           top=[list(r) for r in prof[2]])
+            rows[f"{tf}_{dt}"] = row
+            del st
+    ref = losses[("standard", "float32")]
+    for key, lo in losses.items():
+        bad = {k: (v, ref[k]) for k, v in lo.items()
+               if not abs(v - ref[k]) <= 2e-2 * max(abs(ref[k]), 1e-6)}
+        if bad:
+            raise AssertionError(f"{key} step losses off the float32 standard step's: {bad}")
+    st = TR.create_state(dataclasses.replace(cfg, train_forward="standard"), device=dev,
+                         seed=seed + 41)
+    TR.train_step(st, jittered)
+    spread = grad_ratios({n: p.grad.float() for n, p in st.model.named_parameters()},
+                         grads[("standard", "float32")])
+    del st
+    bar = max(GRAD_REL, GRAD_SPREAD * spread[-1][0])
+    f32 = grad_ratios(grads[("buffer", "float32")], grads[("standard", "float32")])
+    bf16 = grad_ratios(grads[("buffer", "bfloat16")], grads[("standard", "bfloat16")])
+    bad = [r for r in f32 if r[0] > bar]
+    if bad:
+        raise AssertionError(f"buffer vs standard step: {len(bad)} gradient leaves above "
+                             f"{bar:.3e} of their scale; worst {bad[-3:]}")
+    for key, row in rows.items():
+        log(f"[rroutes] train_step {key.replace('_', ' ')}, batch {REG_BATCH}: {row['ms']:.3f} ms "
+            f"(CUDA events, median of 5), peak {row['peak_gib']:.2f} GiB, launches "
+            f"{row['launches']}" + (f"; one step under the profiler {row['wall_ms']:.3f} ms, "
+                                    f"device busy {row['busy_ms']:.3f} ms, idle share "
+                                    f"{row['idle_share']:.4f}" if "busy_ms" in row else
+                                    "; the profiler saw no device work"))
+    log(f"[rroutes] buffer vs standard step, float32: gradient leaves against their scale, "
+        f"worst {f32[-1][0]:.3e} ({f32[-1][1]}), bar {bar:.3e} (the standard step's own spread "
+        f"under a {JITTER:g} relative jitter of the crop {spread[-1][0]:.3e}); bfloat16: worst "
+        f"{bf16[-1][0]:.3e} ({bf16[-1][1]}), logged; losses of every route within 2e-2 of the "
+        f"float32 standard step's: " + "; ".join(
+            f"{tf} {dt} {lo['loss']:.6g}" for (tf, dt), lo in losses.items()))
+    return {"routes": rows, "grad_worst_f32": f32[-1], "grad_bar_f32": bar,
+            "grad_worst_bf16": bf16[-1], "losses": {f"{k[0]}_{k[1]}": v for k, v in losses.items()}}
 
 
 def run_regression_card_vs_cpu(torch, np, dev, seed: int) -> None:
@@ -1438,6 +1537,14 @@ def run_train_cli(torch, np, dev, seed: int, tables: dict, smi) -> dict:
     out["train_regression"] = {"runs_s": [w1, w2], "step_ms": r1["step_ms"] + r2["step_ms"],
                                "wait_s": r1["wait_s"] + r2["wait_s"],
                                "loop_s": r1["loop_s"] + r2["loop_s"]}
+    # one --dtype bfloat16 run, 1 epoch from scratch
+    bf16_run = os.path.join(work, "reg_bf16_run")
+    rb, got, wb = counted(cli_train_regression.main, [
+        "--data_root", reg_root, "--out_dir", bf16_run, "--epochs", "1", "--dtype", "bfloat16"])
+    expect(got, EXPECTED_REG_STEP, reg_steps, "train_regression --dtype bfloat16")
+    metrics_rows(bf16_run, reg_steps)
+    out["train_regression_bf16"] = {"runs_s": [wb], "step_ms": rb["step_ms"],
+                                    "wait_s": rb["wait_s"], "loop_s": rb["loop_s"]}
 
     # 15b. GAN training, 1 epoch, then resumed to 2 from opt.json
     proj_run = os.path.join(work, "proj_run")
@@ -1495,7 +1602,9 @@ def run_train_cli(torch, np, dev, seed: int, tables: dict, smi) -> dict:
     expect(got, {"sphere_conv_s1": LAUNCHES_PER_FORWARD}, batches, "eval_projector")
     em, got, em_s = counted(cli_eval_metrics.main, [
         "--ckpt", reg_ckpt, "--data_root", reg_root, "--load_config", reg_run])
-    expect(got, {}, 0, "eval_metrics")
+    # --eval_apply fast (the default): B7 once per dense layer per batch of 16
+    expect(got, {"dense_conv_fwd": EXPECTED_REG_STEP["dense_conv_fwd"]}, -(-TCLI_SAMPLES // 16),
+           "eval_metrics")
     for what, summary in (("eval_projector", ep), ("eval_metrics", em)):
         vals = [v for k, m in summary.items() if k != "n_samples" for v in m.values()]
         if summary["n_samples"] != TCLI_SAMPLES or not all(math.isfinite(v) for v in vals):
@@ -1520,6 +1629,9 @@ def run_train_cli(torch, np, dev, seed: int, tables: dict, smi) -> dict:
     hw = f"{reg_cfg.crop_h}x{reg_cfg.crop_w}"
     for cli, ref_ms, ref_what in (
             ("train_regression", tables["regression_step_ms"], "phase 12's train_step"),
+            ("train_regression_bf16",
+             tables["regression_routes"]["routes"]["buffer_bfloat16"]["ms"],
+             "phase 12's bf16 buffer train_step"),
             ("train_projector", tables["train_steps_ms"]["G"] + tables["train_steps_ms"]["D"],
              "phase 8's G + D step")):
         r = out[cli]
@@ -1529,8 +1641,9 @@ def run_train_cli(torch, np, dev, seed: int, tables: dict, smi) -> dict:
         waits = r["wait_s"][:n] if len(r["wait_s"]) > n else r["wait_s"]
         r["wait_ms_per_step"] = 1e3 * sum(waits) / n
         r["wait_share"] = sum(r["wait_s"]) / r["loop_s"]
-        log(f"[tcli] {smi}: {cli} from files, {n} steps in 2 runs ({r['runs_s'][0]:.3f} s, "
-            f"resumed {r['runs_s'][1]:.3f} s): step median {r['median_step_ms']:.3f} ms "
+        log(f"[tcli] {smi}: {cli} from files, {n} steps in {len(r['runs_s'])} run(s) ("
+            + ", ".join(f"{x:.3f} s" for x in r["runs_s"]) + f"): step median "
+            f"{r['median_step_ms']:.3f} ms "
             f"(CUDA events; min {min(r['step_ms']):.3f}, max {max(r['step_ms']):.3f}) beside "
             f"{ref_what} {ref_ms:.3f} ms; wait on the data queue {r['wait_ms_per_step']:.3f} ms "
             f"per step, {r['wait_share']:.4f} of the loop ({r['loop_s']:.3f} s)")
@@ -1541,13 +1654,114 @@ def run_train_cli(torch, np, dev, seed: int, tables: dict, smi) -> dict:
         f"dataset written in {write_s:.1f} s")
     log(f"[tcli] launches over the phase: {launches}; per regression step {EXPECTED_REG_STEP}, "
         f"per G+D step {pair}, B1 {LAUNCHES_PER_FORWARD} per test_projector / eval_projector "
-        f"batch ({batches} batches each)")
+        f"batch ({batches} batches each), B7 48 per eval_metrics batch")
     log(f"[tcli] checks: resumed runs start at the saved step ({reg_steps}, {proj_steps}); "
         f"restored states equal their files bit for bit; metrics.csv {2 * reg_steps} and "
         f"{2 * proj_steps} finite rows; test_projector's {TCLI_SAMPLES} maps equal inference "
         f"bit for bit; eval JSON lines finite: eval_projector env_rmse mean "
         f"{ep['env_rmse']['mean']:.4f}, eval_metrics env_rmse mean "
         f"{em['env_rmse']['mean']:.4f}; phase took {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+EXTRACT_PANOS, EXTRACT_BATCH = 64, 16  # phase 16: 4 batches of 16 warped panoramas
+
+
+def run_extract(torch, np, dev, seed: int, smi) -> dict:
+    """Phase 16: anchor-GT extraction from files on the card.
+
+    EXTRACT_PANOS synthetic warped panoramas at 128x256 in PIZ HALF (phase
+    15's content, synthetic_crop), then cli.extract_distribution at its
+    defaults (128 anchors, height 128) and batch EXTRACT_BATCH, twice (the
+    first run builds the anchor index on the card). Checks: one pickle per
+    panorama, each against representation.extract.extract_anchors on the CPU
+    on the same file (rtol 1e-5). Times (the second run): panoramas/s over
+    the CLI's loop, the host's native load_batch ms per batch (the loader
+    thread) and the card's extraction ms per batch (CUDA events); and, on
+    one batch on the card, extract_anchors_batch, its per-anchor sums as the
+    port's index_add_ and as the one-hot matmul in full float32 the JAX
+    package computes."""
+    import pickle
+    import shutil
+
+    from emlight_tpu_torch import native
+    from emlight_tpu_torch.cli import extract_distribution as cli_extract
+    from emlight_tpu_torch.core.exr import write_exr
+    from emlight_tpu_torch.core.hdr import read_hdr
+    from emlight_tpu_torch.nn.layers import full_f32_matmul
+    from emlight_tpu_torch.representation import extract as EX
+
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, "build", "extract_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    hdr_dir = os.path.join(work, "warped")
+    os.makedirs(hdr_dir)
+    rng = np.random.default_rng(seed + 80)
+    t0 = time.perf_counter()
+    names = [f"pano{i:02d}" for i in range(EXTRACT_PANOS)]
+    for nm in names:
+        write_exr(os.path.join(hdr_dir, f"{nm}.exr"), synthetic_crop(np, rng, 128, 256),
+                  half=True, compression="piz")
+    write_s = time.perf_counter() - t0
+    runs = []
+    for k in range(2):
+        out_dir = os.path.join(work, f"pkl{k}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = cli_extract.main(["--hdr_dir", hdr_dir, "--out_dir", out_dir,
+                               "--batch", str(EXTRACT_BATCH)])
+        st["wall_s"] = time.perf_counter() - t0
+        if st["panoramas"] != EXTRACT_PANOS or sorted(os.listdir(out_dir)) != [
+                f"{nm}.pickle" for nm in names]:
+            raise AssertionError(f"extract_distribution wrote {sorted(os.listdir(out_dir))[:4]}...")
+        runs.append(st)
+    st = runs[1]
+    worst = 0.0
+    for nm in names:
+        ref = EX.extract_anchors(read_hdr(os.path.join(hdr_dir, f"{nm}.exr")), n=128,
+                                 device="cpu")
+        with open(os.path.join(work, "pkl1", f"{nm}.pickle"), "rb") as f:
+            got = pickle.load(f)
+        for k, v in got.items():
+            r = ref[k].numpy()
+            np.testing.assert_allclose(v, r, rtol=1e-5, atol=1e-7, err_msg=f"{nm} {k}")
+            worst = max(worst, float(np.abs(v - r).max() / max(np.abs(r).max(), 1e-30)))
+    imgs, _ = native.load_batch([os.path.join(hdr_dir, f"{nm}.exr")
+                                 for nm in names[:EXTRACT_BATCH]], (128, 256))
+    x = torch.from_numpy(imgs).to(dev)
+    index, _ = EX._constants(128, 256, 128, str(x.device))
+    onehot = torch.zeros(128 * 256, 128, device=dev)
+    onehot[torch.arange(128 * 256, device=dev), index] = 1.0
+
+    def matmul_sums():
+        with full_f32_matmul():
+            return (x.reshape(EXTRACT_BATCH, -1, 3).transpose(1, 2) @ onehot).transpose(1, 2)
+
+    sums = EX._anchor_sums(x, index, 128)
+    torch.testing.assert_close(sums, matmul_sums(), rtol=1e-5, atol=1e-3)
+    times = {"extract_anchors_batch": cuda_ms(torch, lambda: EX.extract_anchors_batch(x, n=128)),
+             "index_add": cuda_ms(torch, lambda: EX._anchor_sums(x, index, 128)),
+             "matmul": cuda_ms(torch, matmul_sums)}
+    out = {"write_dataset_s": write_s, "runs": runs, "pickle_worst_rel": worst,
+           "panoramas_per_s": st["panoramas"] / st["seconds"],
+           "load_ms_median": statistics.median(st["load_ms"]),
+           "device_ms_median": statistics.median(st["device_ms"]), "batch_ms": times}
+    log(f"[extract] {smi}: extract_distribution, {EXTRACT_PANOS} PIZ HALF panoramas of 128x256, "
+        f"batch {EXTRACT_BATCH}, 128 anchors: {out['panoramas_per_s']:.3f} panoramas/s over the "
+        f"loop ({st['seconds']:.3f} s; first run {runs[0]['panoramas'] / runs[0]['seconds']:.3f} "
+        f"panoramas/s, {runs[0]['seconds']:.3f} s); host load_batch {out['load_ms_median']:.3f} "
+        f"ms per batch (median; {[round(v, 3) for v in st['load_ms']]}), the card's extraction "
+        f"{out['device_ms_median']:.3f} ms per batch (CUDA events, median; "
+        f"{[round(v, 3) for v in st['device_ms']]})")
+    log(f"[extract] {smi}: one batch of {EXTRACT_BATCH} on the card (median of 10): "
+        f"extract_anchors_batch {times['extract_anchors_batch']:.4f} ms; its anchor sums as "
+        f"index_add_ {times['index_add']:.4f} ms (the port's), as the one-hot matmul in full "
+        f"float32 {times['matmul']:.4f} ms")
+    log(f"[extract] checks: {EXTRACT_PANOS} pickles against extract_anchors on the CPU, worst "
+        f"{worst:.3e} of the leaf's scale (rtol 1e-5); index_add_ sums equal the matmul's "
+        f"(rtol 1e-5); dataset written in {write_s:.1f} s; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -1572,6 +1786,7 @@ def main(argv=None) -> int:
         return 1
     from emlight_tpu_torch import kernels
     from emlight_tpu_torch.config import ProjectorConfig, RegressionConfig
+    from emlight_tpu_torch.nn import dense_conv_kernel as DK
     from emlight_tpu_torch.nn.sphere_conv import SphereConv2D, sphere_conv_plain
     from emlight_tpu_torch.nn.sphere_conv_kernel import KERNELS, sphere_conv_s1
     from emlight_tpu_torch.train import pipeline as PL
@@ -1671,15 +1886,19 @@ def main(argv=None) -> int:
     # 4. slice: the main path, with the launch count read around it
     reqs = [crops(BATCH) for _ in range(REQUESTS)]
     torch.cuda.synchronize()
-    sphere_conv_s1.launches = 0
+    sphere_conv_s1.launches = DK.dense_conv_fwd.launches = 0
     unsat = []
     for i, (crop_reg, crop_proj) in enumerate(reqs):
-        before = sphere_conv_s1.launches
+        before, before_b7 = sphere_conv_s1.launches, DK.dense_conv_fwd.launches
         env, pred = request(crop_reg, crop_proj)
         torch.cuda.synchronize()
         grew = sphere_conv_s1.launches - before
         if grew != LAUNCHES_PER_FORWARD:
             raise AssertionError(f"request {i}: {grew} kernel launches, expected 44")
+        # the regressor's buffer eval forward: B7 once per dense layer
+        grew_b7 = DK.dense_conv_fwd.launches - before_b7
+        if grew_b7 != EXPECTED_REG_STEP["dense_conv_fwd"]:
+            raise AssertionError(f"request {i}: B7 launched {grew_b7} times, expected 48")
         if tuple(env.shape) != (BATCH, 128, 256, 3):
             raise AssertionError(f"env shape {tuple(env.shape)}")
         if not torch.isfinite(env).all():
@@ -1694,11 +1913,13 @@ def main(argv=None) -> int:
             if not torch.isfinite(v).all():
                 raise AssertionError(f"request {i}: non-finite {k_}")
     main_launches = sphere_conv_s1.launches
+    serving_b7 = DK.dense_conv_fwd.launches
     if main_launches != LAUNCHES_PER_FORWARD * REQUESTS or main_launches == 0:
         raise AssertionError(f"main path launched the kernel {main_launches} times")
     log(f"[slice] {REQUESTS} requests x batch {BATCH}: env (B,128,256,3) finite, "
         f"in [0, 50], not constant; kernel launches {main_launches} "
-        f"({LAUNCHES_PER_FORWARD} per request); unsaturated share "
+        f"({LAUNCHES_PER_FORWARD} per request), B7 {serving_b7} (48 per request: the "
+        f"regressor's buffer eval forward); unsaturated share "
         + ", ".join(f"{u:.4f}" for u in unsat))
 
     # the same batch-1 request on the card and on the CPU (plain path)
@@ -1753,11 +1974,31 @@ def main(argv=None) -> int:
     crop_reg, crop_proj = crops(b)
     guide = PL.predicted_guide(RG.predict(regressor, crop_reg), 128, 256,
                                proj_cfg.anchors.splat_size)
+    # the regressor's three eval forwards: the module's standard graph, the
+    # buffer forward pipeline_inference runs (make_eval_apply) and the
+    # closure over this checkpoint (make_baked_infer)
+    eval_apply = RG.make_eval_apply(reg_cfg)
+    baked = RG.make_baked_infer(reg_cfg, regressor)
     with torch.inference_mode():
+        std_out, buf_out = regressor(crop_reg), eval_apply(regressor, crop_reg)
+        baked_out = baked(crop_reg)
+        reg_err = max((buf_out[k] - std_out[k]).abs().max().item() / std_out[k].abs().max().item()
+                      for k in std_out)
+        for k in std_out:
+            torch.testing.assert_close(buf_out[k], std_out[k], rtol=1e-4, atol=1e-5,
+                                       msg=lambda m: f"buffer vs standard forward {k}: {m}")
+            if not torch.equal(baked_out[k], buf_out[k]):
+                raise AssertionError(f"make_baked_infer's {k} differs from make_eval_apply's")
         reg_ms = cuda_ms(torch, lambda: regressor(crop_reg))
+        buf_ms = cuda_ms(torch, lambda: eval_apply(regressor, crop_reg))
+        baked_ms = cuda_ms(torch, lambda: baked(crop_reg))
         gen_ms = cuda_ms(torch, lambda: generator(guide, crop_proj))
     pipe_ms = cuda_ms(torch, lambda: request(crop_reg, crop_proj))
-    log(f"[timing] batch {b}: regressor {reg_ms:.3f} ms, generator {gen_ms:.3f} ms, "
+    log(f"[timing] {smi}: batch {b}: regressor eval forwards (CUDA events, median of 10): "
+        f"standard {reg_ms:.3f} ms, buffer (make_eval_apply, the pipeline's) {buf_ms:.3f} ms, "
+        f"baked (make_baked_infer) {baked_ms:.3f} ms; heads buffer vs standard within "
+        f"{reg_err:.3e} of their scale (rtol 1e-4, atol 1e-5), baked == buffer bit for bit")
+    log(f"[timing] batch {b}: regressor {buf_ms:.3f} ms, generator {gen_ms:.3f} ms, "
         f"pipeline_inference {pipe_ms:.3f} ms; the generator's 44 sphere convs: kernel "
         f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, bound "
         f"{total['bound_ms']:.3f} ms ({total_bound_by}), tc bound {total['tc_bound_ms']:.3f} ms, "
@@ -1775,7 +2016,8 @@ def main(argv=None) -> int:
         for name, ms, n in ranked:
             log(f"[profile]   {ms:9.3f} ms  {ms / busy_ms:.4f}  x{n:<4d} {name[:100]}")
 
-    tables = {"serving_shapes": rows}
+    tables = {"serving_shapes": rows, "regressor_eval_ms": {
+        "standard": reg_ms, "buffer": buf_ms, "baked": baked_ms}}
 
     def save():
         if args.out:
@@ -1793,8 +2035,10 @@ def main(argv=None) -> int:
     save()
     tables["tcli"] = run_train_cli(torch, np, dev, args.seed, tables, smi)
     save()
+    tables["extract"] = run_extract(torch, np, dev, args.seed, smi)
+    save()
 
-    # 16. kernels line
+    # 17. kernels line
     kernels_line = {"kernels": [{
         "name": "sphere_conv_s1",
         "id": "B1",
@@ -1820,6 +2064,8 @@ def main(argv=None) -> int:
     }] + train["entries"] + reg_entries}
     for entry in kernels_line["kernels"]:  # the training CLIs' launches, phase 15
         entry["tcli_launches"] = tables["tcli"]["launches"][entry["name"]]
+        if entry["name"] == "dense_conv_fwd":  # the regressor's buffer eval forward, phase 4
+            entry["serving_launches"] = serving_b7
     log(smi)
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,9 +7,10 @@
 - ``test_projector``   GT pickles + crops -> HDR env map .exr + .png preview
 - ``eval_projector``   a projector checkpoint's env and light-direction errors
 - ``eval_metrics``     a regression checkpoint's parameter, env and direction errors
+- ``extract_distribution`` warped panorama .exr -> anchor-GT pickles
 
 Same flags and outputs as their emlight_tpu.cli counterparts, plus
 ``--device`` (CUDA unless ``cpu`` is asked); previews are .png where the
 JAX CLIs write .jpg, and the flags of features not ported yet exit with
-their ROADMAP.md item.
+their ROADMAP.md item, named by its title.
 """

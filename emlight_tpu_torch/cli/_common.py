@@ -1,8 +1,9 @@
 """What the port's CLIs share: the refusal of the flags whose features are
-not ported, the device check, the regressor's and projector's configs, the
-regressor's restore (.msgpack or reference .pth), the crop list and the crop
-preprocessing, dataset items as a batch on the device, the eval CLIs'
-report and a training loop's data wait."""
+not ported (each message names its ROADMAP.md §1 item by title), the device
+check, the regressor's and projector's configs, the regressor's restore
+(.msgpack or reference .pth, in the dtype of the run it came from), the
+crop list and the crop preprocessing, dataset items as a batch on the
+device, the eval CLIs' report and a training loop's data wait."""
 
 from __future__ import annotations
 
@@ -23,28 +24,20 @@ from ..train.checkpoint import load_checked, restore_regressor
 from ..train.jax_weights import densenet_state_from_jax
 from ..train.torch_import import import_densenet_state_dict
 
-__all__ = ["PARALLEL_NOT_PORTED", "REMAT_NOT_PORTED", "REGRESSION_BF16_NOT_PORTED",
-           "GAN_STEP_NOT_PORTED", "VGG_NOT_PORTED", "EVAL_APPLY_FAST_NOT_PORTED",
-           "add_device_flag", "checked_device", "refuse", "regression_config",
-           "projector_config", "pooled_hw", "load_regressor", "crop_names", "tonemapped_crop",
+__all__ = ["PARALLEL_NOT_PORTED", "GAN_STEP_NOT_PORTED", "VGG_NOT_PORTED", "add_device_flag",
+           "checked_device", "refuse", "regression_config", "saved_dtype", "projector_config",
+           "pooled_hw", "load_regressor", "regressor_apply", "crop_names", "tonemapped_crop",
            "stacked", "summary_line", "next_timed"]
 
-PARALLEL_NOT_PORTED = ("--parallel (the batch sharded over several cards) is not ported yet: "
-                       "multi-GPU is ROADMAP.md §1 item 6; run without it on one card")
-REMAT_NOT_PORTED = ("--remat is not ported yet: the JAX package's rematerialized dense "
-                    "layers live in its concat-free buffer forward, ROADMAP.md §1 item 3; "
-                    "run without it")
-REGRESSION_BF16_NOT_PORTED = ("--dtype bfloat16 for the regressor is not ported yet "
-                              "(ROADMAP.md §1 item 7); run with --dtype float32")
-GAN_STEP_NOT_PORTED = ("--fused and --scan_steps (the fused G+D step) are not ported yet: "
-                       "ROADMAP.md §1 item 4; run the alternating G/D steps without them")
-EVAL_APPLY_FAST_NOT_PORTED = ("argument --eval_apply: invalid choice: 'fast': the concat-free "
-                              "buffer forward (nn/densenet_fast.buffer_apply) is not ported "
-                              "yet, ROADMAP.md §1 item 3; use 'standard' (the same function "
-                              "up to float reassociation)")
+PARALLEL_NOT_PORTED = ("--parallel (the batch sharded over several cards) is not ported yet "
+                       "(ROADMAP.md §1, \"Multi-GPU\"); run without it on one card")
+GAN_STEP_NOT_PORTED = ("--fused and --scan_steps (the fused G+D step) are not ported yet "
+                       "(ROADMAP.md §1, \"The rest of GAN training\"); run the alternating "
+                       "G/D steps without them")
 VGG_NOT_PORTED = ("the VGG19 perceptual term (--vgg_npz with a file, $EMLIGHT_VGG19_NPZ, "
-                  "--vgg_random) is not ported yet: ROADMAP.md §1 item 4; run without it, "
-                  "as the JAX CLI does when no VGG19 weights are present")
+                  "--vgg_random) is not ported yet (ROADMAP.md §1, \"The rest of GAN "
+                  "training\"); run without it, as the JAX CLI does when no VGG19 weights "
+                  "are present")
 
 
 def add_device_flag(ap: argparse.ArgumentParser) -> None:
@@ -86,6 +79,12 @@ def regression_config(anchors: int, crop, block_config, clip_grad_norm: float,
     )
 
 
+def saved_dtype(saved: dict | None) -> str:
+    """The regressor's compute dtype of the training run whose opt.json
+    --load_config named (float32 without one)."""
+    return (saved or {}).get("dtype", "float32")
+
+
 def projector_config(args: argparse.Namespace, **fields) -> ProjectorConfig:
     """The ProjectorConfig of a projector CLI's shape flags (crop_size, ngf,
     ndf, anchors, dtype, clip_grad_norm); env maps are crop_size/2 x
@@ -109,13 +108,23 @@ def pooled_hw(cfg: RegressionConfig) -> tuple[int, int]:
 
 def load_regressor(path: str, cfg: RegressionConfig, device):
     """The regressor from a JAX .msgpack checkpoint or a reference .pth
-    (imported at this config's depth and crop)."""
+    (imported at this config's depth and crop), computing in cfg.dtype."""
     model = R.make_model(cfg, device=device)
     if path.endswith(".pth"):
         params, stats = import_densenet_state_dict(path, block_config=cfg.block_config,
                                                    pooled_hw=pooled_hw(cfg))
         return load_checked(model, densenet_state_from_jax(params, stats), path)
     return restore_regressor(path, model)
+
+
+def regressor_apply(eval_apply: str, cfg: RegressionConfig, regressor):
+    """The eval CLIs' forward, ``--eval_apply``: "fast" (the default) the
+    concat-free buffer forward, as a closure over this checkpoint
+    (regression.make_baked_infer); "standard" the DenseNet module's own.
+    Returns apply(crop) -> heads."""
+    if eval_apply == "fast":
+        return R.make_baked_infer(cfg, regressor)
+    return lambda crop: R.predict(regressor, crop)
 
 
 def crop_names(crops: str | None, data_root: str | None, limit: int) -> tuple[str, list[str]]:

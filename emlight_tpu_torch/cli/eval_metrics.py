@@ -14,9 +14,10 @@ data dir (crop/ + pkl/ GT, the training layout), it reports
   - dominant-light angular error (degrees): argmax-anchor direction, and
     the energy-weighted mean-direction variant.
 
---eval_apply takes 'standard' only: the JAX package's default 'fast' (the
-concat-free buffer forward) is not ported yet (ROADMAP.md §1 item 3) and
-exits. Prints a table plus ONE JSON line; --out writes the JSON to a file.
+--eval_apply fast (the default, as in the JAX CLI) predicts through the
+concat-free buffer forward, 'standard' through the DenseNet module;
+--load_config also supplies the training run's compute dtype. Prints a
+table plus ONE JSON line; --out writes the JSON to a file.
 
 Usage:
   python -m emlight_tpu_torch.cli.eval_metrics \
@@ -32,11 +33,10 @@ import torch
 
 from ..core.geometry import sphere_points
 from ..representation.splat import render_anchor_params
-from ..train import regression as R
 from ..train.config_io import apply_saved_defaults
 from ..train.data import RegressionDataset
-from ._common import (EVAL_APPLY_FAST_NOT_PORTED, add_device_flag, checked_device,
-                      load_regressor, refuse, regression_config, stacked, summary_line)
+from ._common import (add_device_flag, checked_device, load_regressor, regression_config,
+                      regressor_apply, saved_dtype, stacked, summary_line)
 from .eval_projector import angle_deg, env_errors
 
 
@@ -53,10 +53,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--crop", default="192,256")
     ap.add_argument("--clip_grad_norm", type=float, default=0.0,
                     help="accepted, changes nothing (the optimizer state is not read)")
-    ap.add_argument("--eval_apply", choices=("fast", "standard"), default="standard",
-                    help="eval forward: 'standard', the reference-shaped DenseNet; 'fast' "
-                         "(the JAX package's concat-free buffer forward) is not ported "
-                         "yet (ROADMAP.md §1 item 3) and exits")
+    ap.add_argument("--eval_apply", choices=("fast", "standard"), default="fast",
+                    help="eval forward: 'fast' (default) is the concat-free channels-last "
+                         "buffer forward (nn/densenet_fast.buffer_apply) as a closure over "
+                         "the checkpoint (train/regression.make_baked_infer); 'standard' is "
+                         "the reference-shaped DenseNet module. Same checkpoint, same math "
+                         "up to float reassociation")
     ap.add_argument("--load_config", default=None,
                     help="a train run's opt.json (or run dir): model-shape "
                          "flags become defaults so the checkpoint fits")
@@ -65,9 +67,9 @@ def _parser() -> argparse.ArgumentParser:
 
 
 @torch.inference_mode()
-def batch_metrics(regressor, crop: torch.Tensor, gt: dict, n: int, env_h: int, env_w: int,
+def batch_metrics(apply, crop: torch.Tensor, gt: dict, n: int, env_h: int, env_w: int,
                   dirs: torch.Tensor) -> dict:
-    pred = R.predict(regressor, crop)
+    pred = apply(crop)
     p_dist, g_dist = pred["distribution"], gt["distribution"]
     p_int, g_int = pred["intensity"][:, 0], gt["intensity"]
     p_rgb, g_rgb = pred["rgb_ratio"], gt["rgb_ratio"]
@@ -97,12 +99,12 @@ def main(argv=None) -> dict:
     """Run the CLI; returns the summary it prints as its JSON line."""
     ap = _parser()
     dev = checked_device(ap, argv)
-    apply_saved_defaults(ap, argv, exclude=("out",))
+    saved = apply_saved_defaults(ap, argv, exclude=("out",))
     args = ap.parse_args(argv)
-    refuse(ap, (args.eval_apply == "fast", EVAL_APPLY_FAST_NOT_PORTED))
 
-    cfg = regression_config(args.anchors, args.crop, args.block_config, args.clip_grad_norm)
-    regressor = load_regressor(args.ckpt, cfg, dev)
+    cfg = regression_config(args.anchors, args.crop, args.block_config, args.clip_grad_norm,
+                            dtype=saved_dtype(saved))
+    apply = regressor_apply(args.eval_apply, cfg, load_regressor(args.ckpt, cfg, dev))
     env_h, env_w = (int(x) for x in str(args.env_hw).split(","))
     dirs = torch.as_tensor(sphere_points(args.anchors), dtype=torch.float32, device=dev)
 
@@ -114,7 +116,7 @@ def main(argv=None) -> dict:
     for s in range(0, count, args.batch):
         batch = stacked([ds[i] for i in range(s, min(s + args.batch, count))], dev)
         gt = {k: batch[k] for k in ("distribution", "intensity", "rgb_ratio", "ambient")}
-        out = batch_metrics(regressor, batch["crop"], gt, args.anchors, env_h, env_w, dirs)
+        out = batch_metrics(apply, batch["crop"], gt, args.anchors, env_h, env_w, dirs)
         for k, v in out.items():
             acc.setdefault(k, []).append(v.cpu().numpy())
         print(f"{min(s + args.batch, count)}/{count}", flush=True)

@@ -90,7 +90,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--save_pickles", action="store_true",
                     help="also dump the intermediate predicted anchor pickles")
     ap.add_argument("--parallel", action="store_true",
-                    help="not ported yet (multi-GPU, ROADMAP.md §1 item 6): exits")
+                    help="not ported yet (ROADMAP.md §1, \"Multi-GPU\"): exits")
     add_device_flag(ap)
     # regression stage shape (defaults overridden by --reg_config)
     ap.add_argument("--anchors", type=int, default=96)

@@ -51,7 +51,7 @@ def _parser() -> argparse.ArgumentParser:
                     help="bfloat16: conv compute in bf16 (f32 accumulation)")
     ap.add_argument("--limit", type=int, default=0)
     ap.add_argument("--parallel", action="store_true",
-                    help="not ported yet (multi-GPU, ROADMAP.md §1 item 6): exits")
+                    help="not ported yet (ROADMAP.md §1, \"Multi-GPU\"): exits")
     ap.add_argument("--clip_grad_norm", type=float, default=0.0,
                     help="accepted, changes nothing: the optimizer state, whose "
                          "structure clipping changes, is not read")

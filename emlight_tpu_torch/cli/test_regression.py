@@ -6,6 +6,9 @@ reference torch .pth), predicts anchor parameters for every crop in
 --data_root/crop (or the --crops dir) and dumps {distribution, intensity,
 rgb_ratio, ambient} pickles to --out_dir, the format GenProjector's dataset
 consumes for end-to-end inference; --render adds an {name}_env.png preview.
+--eval_apply fast (the default, as in the JAX CLI) predicts through the
+concat-free buffer forward as a closure over the checkpoint; --load_config
+also supplies the training run's compute dtype.
 
 Usage:
   python -m emlight_tpu_torch.cli.test_regression \
@@ -25,10 +28,9 @@ import torch
 from ..core.hdr import TONEMAP_TEST, read_hdr
 from ..core.png import write_png
 from ..representation.splat import render_anchor_params
-from ..train import regression as R
 from ..train.config_io import apply_saved_defaults
-from ._common import (EVAL_APPLY_FAST_NOT_PORTED, add_device_flag, checked_device, crop_names,
-                      load_regressor, refuse, regression_config, tonemapped_crop)
+from ._common import (add_device_flag, checked_device, crop_names, load_regressor,
+                      regression_config, regressor_apply, saved_dtype, tonemapped_crop)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -42,12 +44,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--limit", type=int, default=0)
     ap.add_argument("--render", action="store_true", help="also dump env-map previews")
     ap.add_argument("--parallel", action="store_true",
-                    help="not ported yet (multi-GPU, ROADMAP.md §1 item 6): exits")
-    ap.add_argument("--eval_apply", choices=("fast", "standard"), default="standard",
-                    help="eval forward: 'standard', the reference-shaped DenseNet. The "
-                         "JAX package's default 'fast' (the concat-free buffer forward, "
-                         "nn/densenet_fast.buffer_apply: the same function up to float "
-                         "reassociation) is not ported yet (ROADMAP.md §1 item 3) and exits")
+                    help="not ported yet (ROADMAP.md §1, \"Multi-GPU\"): exits")
+    ap.add_argument("--eval_apply", choices=("fast", "standard"), default="fast",
+                    help="eval forward: 'fast' (default) is the concat-free channels-last "
+                         "buffer forward (nn/densenet_fast.buffer_apply) as a closure over "
+                         "the checkpoint (train/regression.make_baked_infer); 'standard' is "
+                         "the reference-shaped DenseNet module. Same checkpoint, same math "
+                         "up to float reassociation")
     ap.add_argument("--block_config", default="16,16,16")
     ap.add_argument("--crop", default="192,256")
     ap.add_argument("--clip_grad_norm", type=float, default=0.0,
@@ -63,12 +66,13 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     ap = _parser()
     dev = checked_device(ap, argv)
-    apply_saved_defaults(ap, argv, exclude=("out_dir",))
+    saved = apply_saved_defaults(ap, argv, exclude=("out_dir",))
     args = ap.parse_args(argv)
-    refuse(ap, (args.eval_apply == "fast", EVAL_APPLY_FAST_NOT_PORTED))
 
-    cfg = regression_config(args.anchors, args.crop, args.block_config, args.clip_grad_norm)
+    cfg = regression_config(args.anchors, args.crop, args.block_config, args.clip_grad_norm,
+                            dtype=saved_dtype(saved))
     regressor = load_regressor(args.ckpt, cfg, dev)
+    apply = regressor_apply(args.eval_apply, cfg, regressor)
 
     crop_dir, names = crop_names(args.crops, args.data_root, args.limit)
     os.makedirs(args.out_dir, exist_ok=True)
@@ -76,7 +80,7 @@ def main(argv=None) -> None:
         chunk = names[s : s + args.batch]
         crops = [tonemapped_crop(read_hdr(os.path.join(crop_dir, nm)), cfg.crop_h, cfg.crop_w)[1]
                  for nm in chunk]
-        pred = R.predict(regressor, torch.as_tensor(np.stack(crops), device=dev))
+        pred = apply(torch.as_tensor(np.stack(crops), device=dev))
         pred = {k: v.cpu().numpy() for k, v in pred.items()}
         for i, nm in enumerate(chunk):
             para = {

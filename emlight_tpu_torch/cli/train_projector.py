@@ -17,8 +17,9 @@ matching; G every --d_steps_per_g iterations, D every iteration
 
 Without VGG19 weights the JAX CLI trains without the perceptual term, and
 so does the port. The flags of what is not ported exit with their
-ROADMAP.md item: --fused and --scan_steps, --vgg_npz with a file (or
-$EMLIGHT_VGG19_NPZ) and --vgg_random (item 4), --parallel (item 6).
+ROADMAP.md §1 item, named by its title: --fused and --scan_steps,
+--vgg_npz with a file (or $EMLIGHT_VGG19_NPZ) and --vgg_random ("The rest
+of GAN training"), --parallel ("Multi-GPU").
 
 Usage:
   python -m emlight_tpu_torch.cli.train_projector --data_root /data/LavalIndoor \
@@ -63,12 +64,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                     help="bfloat16: conv compute in bf16 (f32 accumulation/params)")
     ap.add_argument("--vgg_npz", default=None,
-                    help="not ported yet (ROADMAP.md §1 item 4): exits when the file exists")
+                    help="not ported yet (ROADMAP.md §1, \"The rest of GAN training\"): exits "
+                         "when the file exists")
     ap.add_argument("--vgg_random", action="store_true",
-                    help="not ported yet (ROADMAP.md §1 item 4): exits")
+                    help="not ported yet (ROADMAP.md §1, \"The rest of GAN training\"): exits")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--parallel", action="store_true",
-                    help="not ported yet (multi-GPU, ROADMAP.md §1 item 6): exits")
+                    help="not ported yet (ROADMAP.md §1, \"Multi-GPU\"): exits")
     ap.add_argument("--display_every", type=int, default=100)
     ap.add_argument("--save_every", type=int, default=500)
     ap.add_argument("--clip_grad_norm", type=float, default=0.0,
@@ -76,9 +78,10 @@ def _parser() -> argparse.ArgumentParser:
                          "(reference parity — but the unclipped recipe can NaN "
                          "on harsh lights). Keep consistent across train/resume")
     ap.add_argument("--fused", action="store_true",
-                    help="not ported yet (ROADMAP.md §1 item 4): exits")
+                    help="not ported yet (ROADMAP.md §1, \"The rest of GAN training\"): exits")
     ap.add_argument("--scan_steps", type=int, default=0,
-                    help="not ported yet (ROADMAP.md §1 item 4): exits when > 1")
+                    help="not ported yet (ROADMAP.md §1, \"The rest of GAN training\"): exits "
+                         "when > 1")
     ap.add_argument("--load_config", default=None,
                     help="opt.json (or run dir) whose flags become defaults; "
                          "--resume picks up {out_dir}/opt.json automatically")

@@ -37,8 +37,7 @@ from ..train.config_io import apply_saved_defaults, report_overrides, save_run_c
 from ..train.data import (RegressionDataset, batched, device_prefetch, prefetch,
                           synthetic_regression_batch)
 from ..train.loop import IterationTimer, MetricsLogger, NaNGuard, profile_trace, render_summary
-from ._common import (PARALLEL_NOT_PORTED, REGRESSION_BF16_NOT_PORTED,
-                      REMAT_NOT_PORTED, add_device_flag, checked_device, next_timed, refuse,
+from ._common import (PARALLEL_NOT_PORTED, add_device_flag, checked_device, next_timed, refuse,
                       regression_config)
 
 
@@ -53,7 +52,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--parallel", action="store_true",
-                    help="not ported yet (multi-GPU, ROADMAP.md §1 item 6): exits")
+                    help="not ported yet (ROADMAP.md §1, \"Multi-GPU\"): exits")
     ap.add_argument("--summary_every", type=int, default=100)
     ap.add_argument("--save_every", type=int, default=500)
     ap.add_argument("--sinkhorn_backend", choices=("auto", "jnp"), default="auto",
@@ -65,9 +64,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="DenseNet blocks, e.g. '2,2' for smoke runs")
     ap.add_argument("--crop", default="192,256", help="input H,W")
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
-                    help="bfloat16 is not ported yet (ROADMAP.md §1 item 7): exits")
+                    help="compute dtype (bfloat16: convs, BatchNorm outputs and the fc in "
+                         "bf16; parameters, statistics and the heads float32)")
     ap.add_argument("--remat", action="store_true",
-                    help="not ported yet (ROADMAP.md §1 item 3): exits")
+                    help="rematerialize dense layers in the standard train forward; as in "
+                         "the JAX package, the default buffer forward does not read it")
     ap.add_argument("--clip_grad_norm", type=float, default=0.0,
                     help="global-norm gradient clip; 0 = off (reference parity). "
                          "Changes optimizer-state structure — keep consistent "
@@ -90,15 +91,14 @@ def main(argv=None) -> dict:
     dev = checked_device(ap, argv)
     saved = apply_saved_defaults(ap, argv)
     args = ap.parse_args(argv)
-    refuse(ap, (args.parallel, PARALLEL_NOT_PORTED),
-           (args.dtype != "float32", REGRESSION_BF16_NOT_PORTED), (args.remat, REMAT_NOT_PORTED))
+    refuse(ap, (args.parallel, PARALLEL_NOT_PORTED))
     report_overrides(saved, args)
     save_run_config(args.out_dir, args)
 
     cfg = regression_config(args.anchors, args.crop, args.block_config, args.clip_grad_norm,
                             sinkhorn=SinkhornConfig(backend="auto"),
-                            batch_size=args.batch_size, lr=args.lr,
-                            log_grad_norms=args.log_grad_norms)
+                            batch_size=args.batch_size, lr=args.lr, dtype=args.dtype,
+                            remat=args.remat, log_grad_norms=args.log_grad_norms)
     state = R.create_state(cfg, device=dev)
     ckpt_dir = os.path.join(args.out_dir, "checkpoints")
     restored = None

@@ -1,24 +1,31 @@
-// Native EXR reader and writer of emlight_tpu_torch (the port's copy of
-// emlight_tpu/native/exr_native.cpp, its codec only).
+// Native EXR codec and batch loader of emlight_tpu_torch (the port's copy
+// of emlight_tpu/native/exr_native.cpp).
 //
 // An OpenEXR scanline codec with no external EXR dependency (zlib only):
 //   - read: NONE / ZIPS / ZIP / PIZ compression, HALF / FLOAT / UINT
 //     channels, the R, G, B planes as (H, W, 3) float32; PIZ decoding
 //     mirrors core/piz.py, the pure-Python oracle it is tested against bit
 //     for bit;
-//   - write: (H, W, 3) float32 as a ZIP-compressed FLOAT or HALF file.
+//   - write: (H, W, 3) float32 as a ZIP-compressed FLOAT or HALF file;
+//   - the TonemapHDR alpha (gamma power + percentile of the nonzero values,
+//     RegressionNetwork/util.py:36-66);
+//   - a threaded batch loader: decode + area resize (bilinear-like when
+//     upscaling: the box weights of one source pixel) + optional tonemap of
+//     a whole batch in parallel, into one caller buffer.
 //
 // Exposed through a plain C ABI for ctypes (emlight_tpu_torch/native/
 // __init__.py). A ctypes call releases the GIL, so a loader thread decodes
 // here while the main thread drives the card.
-// Build: g++ -O3 -std=c++17 -shared -fPIC exr_native.cpp -o <lib>.so -lz
+// Build: g++ -O3 -std=c++17 -shared -fPIC exr_native.cpp -o <lib>.so -lz -pthread
 
 #include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <fstream>
 #include <string>
+#include <thread>
 #include <vector>
 
 #include <zlib.h>
@@ -575,6 +582,79 @@ bool decode_exr(const std::string& path, std::vector<float>* out, int* height,
   return true;
 }
 
+// Box-filter area resize: each output pixel averages the source area it
+// covers, with fractional edge weights (downscale); when upscaling that
+// area lies within one or two source pixels.
+void area_resize(const float* src, int sh, int sw, float* dst, int dh, int dw) {
+  if (dh == sh && dw == sw) {
+    std::memcpy(dst, src, (size_t)sh * sw * 3 * sizeof(float));
+    return;
+  }
+  double sy = (double)sh / dh, sx = (double)sw / dw;
+  for (int y = 0; y < dh; y++) {
+    double y0 = y * sy, y1 = (y + 1) * sy;
+    int iy0 = (int)y0, iy1 = std::min((int)std::ceil(y1), sh);
+    for (int x = 0; x < dw; x++) {
+      double x0 = x * sx, x1 = (x + 1) * sx;
+      int ix0 = (int)x0, ix1 = std::min((int)std::ceil(x1), sw);
+      double acc[3] = {0, 0, 0}, total = 0;
+      for (int yy = iy0; yy < iy1; yy++) {
+        double wy = std::min((double)yy + 1, y1) - std::max((double)yy, y0);
+        for (int xx = ix0; xx < ix1; xx++) {
+          double wx = std::min((double)xx + 1, x1) - std::max((double)xx, x0);
+          double wgt = wy * wx;
+          const float* p = src + ((size_t)yy * sw + xx) * 3;
+          // fused multiply-adds, as g++ contracts these products where the
+          // target has FMA (the JAX package builds with -march=native); this
+          // library is built for any x86-64, so it asks for them explicitly
+          acc[0] = std::fma(wgt, (double)p[0], acc[0]);
+          acc[1] = std::fma(wgt, (double)p[1], acc[1]);
+          acc[2] = std::fma(wgt, (double)p[2], acc[2]);
+          total += wgt;
+        }
+      }
+      float* q = dst + ((size_t)y * dw + x) * 3;
+      q[0] = (float)(acc[0] / total);
+      q[1] = (float)(acc[1] / total);
+      q[2] = (float)(acc[2] / total);
+    }
+  }
+}
+
+// numpy-style linear-interpolated percentile of the positive values of the
+// gamma-powered pixels; returns alpha = max_mapping / (pct + 1e-10) and
+// optionally writes the clipped tonemapped image (TonemapHDR semantics).
+float tonemap_alpha_impl(float* img, size_t n, float gamma, float percentile,
+                         float max_mapping, bool apply) {
+  std::vector<float> powered(n);
+  float inv_g = 1.0f / gamma;
+  for (size_t i = 0; i < n; i++)
+    powered[i] = img[i] > 0 ? std::pow(img[i], inv_g) : (img[i] == 0 ? 0.0f : NAN);
+  std::vector<float> nz;
+  nz.reserve(n);
+  for (float v : powered)
+    if (v > 0) nz.push_back(v);
+  std::vector<float>& pool = nz.empty() ? powered : nz;
+  double idx = (pool.size() - 1) * (double)percentile / 100.0;
+  size_t lo = (size_t)idx;
+  double frac = idx - lo;
+  std::nth_element(pool.begin(), pool.begin() + lo, pool.end());
+  float vlo = pool[lo];
+  float vhi = vlo;
+  if (frac > 0 && lo + 1 < pool.size()) {
+    vhi = *std::min_element(pool.begin() + lo + 1, pool.end());
+  }
+  float pct = (float)(vlo * (1 - frac) + vhi * frac);
+  float alpha = max_mapping / (pct + 1e-10f);
+  if (apply) {
+    for (size_t i = 0; i < n; i++) {
+      float v = alpha * powered[i];
+      img[i] = v < 0 ? 0 : (v > 1 ? 1 : v);
+    }
+  }
+  return alpha;
+}
+
 }  // namespace
 
 extern "C" {
@@ -603,6 +683,57 @@ int emlight_read_exr(const char* path, float* out, int height, int width) {
   if (h != height || w != width) return set_error("dim mismatch"), 1;
   std::memcpy(out, img.data(), img.size() * sizeof(float));
   return 0;
+}
+
+// Multithreaded batch load: decode n files, area-resize to (out_h, out_w),
+// optional tonemap (gamma/percentile/max_mapping; apply=0 computes alpha
+// only, alphas may be null), write into out (n, out_h, out_w, 3) and
+// alphas (n). On failure returns 1, the error naming the first file (in
+// batch order) that failed.
+int emlight_load_batch(const char** paths, int n, float* out, int out_h,
+                       int out_w, int apply_tonemap, float gamma,
+                       float percentile, float max_mapping, float* alphas,
+                       int n_threads) {
+  std::atomic<int> next(0);
+  std::atomic<bool> failed(false);
+  std::vector<std::string> errors(n);  // one slot per file: no shared writes
+  int workers = n_threads > 0 ? n_threads
+                              : std::min<int>(n, std::thread::hardware_concurrency());
+  workers = std::max(workers, 1);
+  auto work = [&]() {
+    while (true) {
+      int i = next.fetch_add(1);
+      if (i >= n || failed.load()) return;
+      std::vector<float> img;
+      int h, w;
+      if (!decode_exr(paths[i], &img, &h, &w)) {
+        errors[i] = g_error.empty() ? "decode failed" : g_error;  // this thread's
+        failed.store(true);
+        return;
+      }
+      float* dst = out + (size_t)i * out_h * out_w * 3;
+      area_resize(img.data(), h, w, dst, out_h, out_w);
+      if (alphas) {
+        alphas[i] = tonemap_alpha_impl(dst, (size_t)out_h * out_w * 3, gamma,
+                                       percentile, max_mapping,
+                                       apply_tonemap != 0);
+      }
+    }
+  };
+  std::vector<std::thread> pool;
+  for (int t = 0; t < workers; t++) pool.emplace_back(work);
+  for (auto& t : pool) t.join();
+  for (int i = 0; i < n; i++)
+    if (!errors[i].empty())
+      return set_error(std::string(paths[i]) + ": " + errors[i]), 1;
+  return 0;
+}
+
+// TonemapHDR: returns alpha; apply!=0 also writes the clipped tonemap in place.
+float emlight_tonemap_alpha(float* img, long long n, float gamma,
+                            float percentile, float max_mapping, int apply) {
+  return tonemap_alpha_impl(img, (size_t)n, gamma, percentile, max_mapping,
+                            apply != 0);
 }
 
 // Write (h, w, 3) float32 as a ZIP-compressed FLOAT or HALF EXR.

@@ -5,7 +5,7 @@ Function.
 Port of emlight_tpu/nn/dense_conv_pallas.py (``conv3x3_nhwc_reference``,
 ``fused_affine_conv3x3``). Layout NHWC, SAME zero padding of y = x * a + b:
 the border is 0, not b. a and b are the per-channel train-mode BatchNorm
-affine (nn/layers.py::BatchNorm.train_affine); the kernel is HWIO
+affine (nn/layers.py::BatchNorm.affine); the kernel is HWIO
 (3, 3, Cin, Cout).
 
 - ``conv3x3_nhwc_reference``: the forward's plain version (y rounded to x's

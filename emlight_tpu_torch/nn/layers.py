@@ -77,6 +77,11 @@ class BatchNorm(nn.Module):
     included (nn.BatchNorm2d would store the unbiased one). Eval: the running
     statistics; on NCHW through F.batch_norm.
 
+    ``dtype`` is flax's compute dtype: the moments, the normalization and the
+    running statistics stay in float32 (or float64 for a float64 input), and
+    the output is rounded to ``dtype`` (None: left in that type, as flax
+    promotes the input with the float32 scale).
+
     ``affine`` adds the parameters ``weight`` (flax's scale) and ``bias``.
     ``torch_names`` names the running statistics as nn.BatchNorm2d does
     (running_mean, running_var, num_batches_tracked), else ``mean`` and
@@ -86,11 +91,13 @@ class BatchNorm(nn.Module):
     """
 
     def __init__(self, channels: int, *, channel_dim: int = -1, affine: bool = False,
-                 torch_names: bool = False, eps: float = 1e-5, momentum: float = 0.9):
+                 torch_names: bool = False, eps: float = 1e-5, momentum: float = 0.9,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.channel_dim = channel_dim
         self.eps = eps
         self.momentum = momentum
+        self.dtype = dtype
         self._names = ("running_mean", "running_var") if torch_names else ("mean", "var")
         self.register_buffer(self._names[0], torch.zeros(channels))
         self.register_buffer(self._names[1], torch.ones(channels))
@@ -107,23 +114,34 @@ class BatchNorm(nn.Module):
         shape[self.channel_dim] = -1
         return v.reshape(shape)
 
+    def moments(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean, biased var) of the batch in float32 (float64 for a float64
+        x), differentiable; the running statistics are not touched."""
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
+        mean = xs.mean(dims)
+        var = torch.clamp((xs * xs).mean(dims) - mean * mean, min=0.0)
+        return mean, var
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """r = momentum * r + (1 - momentum) * batch, for the mean and the
+        (biased) variance."""
+        rm, rv = self.running_stats()
+        rm.mul_(self.momentum).add_(mean.to(rm.dtype), alpha=1.0 - self.momentum)
+        rv.mul_(self.momentum).add_(var.to(rv.dtype), alpha=1.0 - self.momentum)
+
     def batch_moments(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(mean, biased var) of the batch, differentiable; updates the running
         statistics (train mode only)."""
-        dims = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
-        with torch.no_grad():
-            rm, rv = self.running_stats()
-            rm.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
-            rv.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        mean, var = self.moments(x)
+        self.update_running(mean.detach(), var.detach())
         return mean, var
 
-    def train_affine(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Train mode as a per-channel affine y = x * a + b, with
-        a = scale * rsqrt(var + eps) and b = bias - mean * a from the batch's
-        moments (differentiable; the running statistics are updated)."""
-        mean, var = self.batch_moments(x)
+    def affine(self, mean: torch.Tensor, var: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The normalization as a per-channel affine y = x * a + b, with
+        a = scale * rsqrt(var + eps) and b = bias - mean * a
+        (differentiable)."""
         a = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             a = a * self.weight
@@ -132,19 +150,27 @@ class BatchNorm(nn.Module):
             b = b + self.bias
         return a, b
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            rm, rv = self.running_stats()
-            if self.channel_dim == 1:
-                return F.batch_norm(x, rm, rv, self.weight, self.bias, False, 0.0, self.eps)
-            mean, mul = rm, torch.rsqrt(rv + self.eps)
-        else:
-            mean, var = self.batch_moments(x)
-            mul = torch.rsqrt(var + self.eps)
+    def normalize(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+        """(x - mean) * (rsqrt(var + eps) * scale) + bias in the moments'
+        type, rounded to ``dtype`` if set."""
+        mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             mul = mul * self.weight
-        y = (x - self._shape(mean, x.dim())) * self._shape(mul, x.dim())
-        return y if self.bias is None else y + self._shape(self.bias, x.dim())
+        y = (x.to(mean.dtype) - self._shape(mean, x.dim())) * self._shape(mul, x.dim())
+        if self.bias is not None:
+            y = y + self._shape(self.bias, x.dim())
+        return y if self.dtype is None else y.to(self.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self.normalize(x, *self.batch_moments(x))
+        rm, rv = self.running_stats()
+        if self.channel_dim == 1:
+            ct = torch.promote_types(x.dtype, rm.dtype)
+            y = F.batch_norm(x.to(ct), rm.to(ct), rv.to(ct), self.weight, self.bias, False, 0.0,
+                             self.eps)
+            return y if self.dtype is None else y.to(self.dtype)
+        return self.normalize(x, rm, rv)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

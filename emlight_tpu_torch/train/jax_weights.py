@@ -15,6 +15,8 @@ module names equal the JAX names, so each leaf maps by its path:
 - Dense kernels (in, out) -> Linear ``weight`` (out, in). Both packages
   flatten pooled features in H, W, C order, so no fc permutation is needed;
 - BatchNorm scale/bias -> weight/bias, batch stats mean/var -> running_*;
+- a folded dense layer (``fold_eval_variables``: conv2 with a bias, its
+  ``conv2_pad``, no norm2) maps the same way, ``conv2_pad`` verbatim;
 - spectral-norm u and v are copied verbatim: v already indexes the
   (kh, kw, in) flattening the port's sigma uses.
 """
@@ -60,6 +62,8 @@ def _densenet_params(params: Mapping) -> dict[str, np.ndarray]:
             sd[f"{mod}.weight"] = _f32(a)
         elif leaf == "bias":
             sd[f"{mod}.bias"] = _f32(a)
+        elif leaf == "conv2_pad":  # a folded dense layer's (fold_eval_variables)
+            sd[f"{mod}.conv2_pad"] = _f32(a)
         else:
             raise KeyError(f"unexpected DenseNet parameter {'/'.join(path)}")
     return sd
@@ -164,8 +168,8 @@ def densenet_tree_from_state(sd: Mapping[str, torch.Tensor]) -> tuple[dict, dict
                 _nest(params, f"{mod}.kernel", a.T)
             else:
                 _nest(params, f"{mod}.scale", a)
-        elif leaf == "bias":
-            _nest(params, f"{mod}.bias", a)
+        elif leaf in ("bias", "conv2_pad"):
+            _nest(params, key, a)
         elif leaf in ("running_mean", "running_var"):
             _nest(stats, f"{mod}.{leaf[len('running_'):]}", a)
         elif leaf != "num_batches_tracked":

@@ -6,7 +6,9 @@ recipes resolved analytically, the end-to-end guide is
     guide = splat(dist_hat * int_hat * rgb_hat, scale=5) + amb_hat
 
 with no per-sample tonemap alpha (it cancels); see the JAX module's
-docstring for the derivation.
+docstring for the derivation. The regressor runs through
+``regression.make_eval_apply``, the concat-free buffer eval forward, as
+the JAX package's pipeline does.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from ..config import ProjectorConfig, RegressionConfig
 from ..core.device import resolve_device
 from ..representation.splat import render_anchor_params
+from .regression import make_eval_apply
 
 __all__ = ["pipeline_inference", "predicted_guide", "END_TO_END_INTENSITY_SCALE"]
 
@@ -64,7 +67,7 @@ def pipeline_inference(regressor, generator, crop_reg, crop_proj,
     if tuple(crop_reg.shape[1:]) != (reg_cfg.crop_h, reg_cfg.crop_w, 3):
         raise ValueError(f"crop_reg {tuple(crop_reg.shape)} does not match the "
                          f"regressor's {reg_cfg.crop_h}x{reg_cfg.crop_w} crop")
-    pred = regressor(crop_reg)
+    pred = make_eval_apply(reg_cfg)(regressor, crop_reg)
     env_h, env_w = proj_cfg.crop_size // 2, proj_cfg.crop_size
     guide = predicted_guide(pred, env_h, env_w, proj_cfg.anchors.splat_size)
     env = generator(guide, crop_proj)

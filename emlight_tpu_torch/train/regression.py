@@ -3,42 +3,57 @@ and eval.
 
 Port of emlight_tpu/train/regression.py: ``make_model``, ``create_state``
 (Adam, optional global-norm clipping in front, ``_maybe_clipped``),
-``_make_sinkhorn``, ``loss_fn``, ``train_step``, ``eval_step`` and
-``predict``. The loss is the reference's
-1000·Sinkhorn + 1000·L2(dist) + 0.1·L2(intensity) + 100·L2(rgb) +
-1·L2(ambient) (RegressionNetwork/train.py:92-98), with the Sinkhorn EMD
-SUMMED over the batch and every L2 term a mean. The train forward is the
-DenseNet's standard graph with the fused norm2 -> conv2 (nn/densenet.py);
-every step updates the BatchNorm running statistics.
+``_make_sinkhorn``, ``loss_fn``, ``train_step``, ``eval_step``,
+``predict``, ``make_train_apply``, ``make_eval_apply``,
+``make_baked_infer`` and ``fold_for_inference``. The loss is the
+reference's 1000·Sinkhorn + 1000·L2(dist) + 0.1·L2(intensity) +
+100·L2(rgb) + 1·L2(ambient) (RegressionNetwork/train.py:92-98), with the
+Sinkhorn EMD SUMMED over the batch and every L2 term a mean. Every step
+updates the BatchNorm running statistics.
+
+Forwards go through the state's ``apply_fn(model, crop, train)``, as in the
+JAX package. ``cfg.train_forward`` picks it: "buffer" (the default, as
+there) is ``make_train_apply``, the concat-free buffer forwards of
+nn/densenet_fast.py, train_apply with its block backward in training and
+buffer_apply at eval; "standard" is the DenseNet module's own graph
+(``standard_apply``), the one ``cfg.remat`` acts on. As in the JAX package,
+``remat`` changes nothing under "buffer".
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
 from ..config import RegressionConfig
 from ..core.device import resolve_device
 from ..losses.sinkhorn import SamplesLoss
-from ..nn.densenet import DenseNet
+from ..nn import densenet_fast as DF
+from ..nn.densenet import DenseNet, fold_eval_variables
 from .optim import clip_by_global_norm, global_norm
 
 __all__ = ["make_model", "predict", "RegressionState", "create_state", "loss_fn",
-           "train_step", "eval_step", "HEADS"]
+           "train_step", "eval_step", "standard_apply", "make_train_apply", "make_eval_apply",
+           "make_baked_infer", "fold_for_inference", "HEADS"]
 
 HEADS = ("fc_dist", "fc_intensity", "fc_rgb_ratio", "fc_ambient")
 
 
-def make_model(cfg: RegressionConfig, device=None, seed: int = 0) -> DenseNet:
-    """The regressor in eval mode on `device` (CUDA unless "cpu" is asked).
+def make_model(cfg: RegressionConfig, device=None, seed: int = 0,
+               fold_bn: bool = False) -> DenseNet:
+    """The regressor in eval mode on `device` (CUDA unless "cpu" is asked),
+    computing in ``cfg.dtype`` (float32 parameters), its dense layers
+    rematerialized in the standard train forward if ``cfg.remat``;
+    ``fold_bn`` builds the eval-only folded layout of ``fold_for_inference``.
 
     Weights are drawn on the CPU from a torch.Generator seeded with `seed`,
     so one seed gives the same model on every device.
     """
     dev = resolve_device(device)
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"regressor dtype {cfg.dtype!r}: only float32 is ported")
+    if cfg.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"regressor dtype {cfg.dtype!r}: float32 or bfloat16")
     gen = torch.Generator().manual_seed(seed)
     model = DenseNet(
         growth_rate=cfg.growth_rate,
@@ -47,35 +62,107 @@ def make_model(cfg: RegressionConfig, device=None, seed: int = 0) -> DenseNet:
         n_anchors=cfg.anchors.regression_anchors,
         input_hw=(cfg.crop_h, cfg.crop_w),
         generator=gen,
+        dtype=getattr(torch, cfg.dtype),
+        remat=cfg.remat,
+        fold_bn=fold_bn,
     )
     return model.eval().to(dev)
 
 
-@torch.inference_mode()
-def predict(model: DenseNet, crop: torch.Tensor) -> dict[str, torch.Tensor]:
+def standard_apply(model: DenseNet, crop: torch.Tensor, train: bool = False):
+    """The DenseNet module's own forward, in train or eval mode."""
+    return model.train(train)(crop)
+
+
+def make_train_apply(cfg: RegressionConfig) -> Callable:
+    """The default forward of training, ``cfg.train_forward == "buffer"``:
+    apply_fn(model, crop, train) runs nn/densenet_fast.py's train_apply
+    (the concat-free buffer forward with its block backward) in training and
+    buffer_apply at eval. ``cfg.remat`` is not read, as the JAX package's
+    make_train_apply does not read it."""
+
+    def apply_fn(model: DenseNet, crop: torch.Tensor, train: bool = False):
+        model.train(train)
+        if train:
+            return DF.train_apply(model, crop)
+        return DF.buffer_apply(model, crop)
+
+    return apply_fn
+
+
+def make_eval_apply(cfg: RegressionConfig) -> Callable:
+    """The default forward of inference: apply_fn(model, crop) runs the
+    concat-free buffer eval forward (nn/densenet_fast.py::buffer_apply) on
+    the model's parameters and running statistics. Eval only."""
+
+    def apply_fn(model: DenseNet, crop: torch.Tensor, train: bool = False):
+        if train:
+            raise ValueError("buffer_apply is an eval-only forward")
+        return DF.buffer_apply(model.eval(), crop)
+
+    return apply_fn
+
+
+def make_baked_infer(cfg: RegressionConfig, model: DenseNet) -> Callable:
+    """Serving inference for one checkpoint: a closure ``infer(crop) ->
+    heads`` over the buffer eval forward with every BatchNorm affine and
+    kernel layout computed once, here (nn/densenet_fast.py::eval_plan). Its
+    outputs equal ``make_eval_apply(cfg)(model, crop)``'s bit for bit; the
+    model must not change while the closure serves."""
+    model.eval()
+    plan = DF.eval_plan(model)
+
+    def infer(crop: torch.Tensor) -> dict[str, torch.Tensor]:
+        return DF.buffer_forward(model, plan, crop)
+
+    return infer
+
+
+def fold_for_inference(cfg: RegressionConfig, model: DenseNet) -> DenseNet:
+    """The eval model with every dense layer's norm2 folded into its conv2
+    kernel and a bias (nn/densenet.py::fold_eval_variables): a new
+    ``fold_bn`` DenseNet in eval mode on the model's device, whose standard
+    eval forward equals the model's up to float reassociation."""
+    folded = make_model(cfg, device=next(model.parameters()).device, fold_bn=True)
+    folded.load_state_dict(fold_eval_variables(model.state_dict()))
+    return folded
+
+
+def predict(model: DenseNet, crop: torch.Tensor, apply_fn: Callable | None = None
+            ) -> dict[str, torch.Tensor]:
     """Inference: crop (B, H, W, 3) -> anchor parameter dict
-    {distribution (B, N), intensity (B, 1), rgb_ratio (B, 3), ambient (B, 3)}."""
-    return model(crop)
+    {distribution (B, N), intensity (B, 1), rgb_ratio (B, 3), ambient (B, 3)},
+    through ``apply_fn(model, crop, train=False)`` (the model's own eval
+    forward if None)."""
+    with torch.inference_mode():
+        return (apply_fn or standard_apply)(model, crop, train=False)
 
 
 @dataclasses.dataclass
 class RegressionState:
-    """The model (its parameters and BatchNorm running statistics), Adam and
-    the step count. ``train_step`` updates all three in place."""
+    """The model (its parameters and BatchNorm running statistics), Adam,
+    the step count and the forward (``apply_fn(model, crop, train)``).
+    ``train_step`` updates the first three in place."""
 
     cfg: RegressionConfig
     model: DenseNet
     opt: torch.optim.Adam
     step: int = 0
+    apply_fn: Callable = standard_apply
 
 
 def create_state(cfg: RegressionConfig, device=None, seed: int = 0) -> RegressionState:
-    """make_model's regressor and Adam(cfg.lr, cfg.betas, eps 1e-8), the
-    update optax.adam makes. cfg.clip_grad_norm > 0 clips the global gradient
-    norm before each update (off by default, as in the reference)."""
+    """make_model's regressor, Adam(cfg.lr, cfg.betas, eps 1e-8), the
+    update optax.adam makes, and the forward ``cfg.train_forward`` names
+    ("buffer": ``make_train_apply``; "standard": the module's graph).
+    cfg.clip_grad_norm > 0 clips the global gradient norm before each
+    update (off by default, as in the reference)."""
+    if cfg.train_forward not in ("buffer", "standard"):
+        raise ValueError(f"train_forward {cfg.train_forward!r}: 'buffer' or 'standard'")
     model = make_model(cfg, device, seed)
     opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, betas=tuple(cfg.betas), eps=1e-8)
-    return RegressionState(cfg=cfg, model=model, opt=opt)
+    apply_fn = make_train_apply(cfg) if cfg.train_forward == "buffer" else standard_apply
+    return RegressionState(cfg=cfg, model=model, opt=opt, apply_fn=apply_fn)
 
 
 def _make_sinkhorn(cfg: RegressionConfig) -> SamplesLoss:
@@ -89,12 +176,13 @@ def _batch_on(batch: dict, dev: torch.device) -> dict:
     return {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
 
 
-def loss_fn(model: DenseNet, batch: dict, cfg: RegressionConfig):
-    """Forward (in the model's current mode) + composite loss. batch: crop
-    (B, H, W, 3), distribution (B, N), intensity (B,), rgb_ratio (B, 3),
-    ambient (B, 3). Returns (total, metrics, pred)."""
+def loss_fn(model: DenseNet, batch: dict, cfg: RegressionConfig, train: bool,
+            apply_fn: Callable = standard_apply):
+    """Forward (``apply_fn(model, crop, train)``) + composite loss. batch:
+    crop (B, H, W, 3), distribution (B, N), intensity (B,), rgb_ratio
+    (B, 3), ambient (B, 3). Returns (total, metrics, pred)."""
     b = _batch_on(batch, next(model.parameters()).device)
-    pred = model(b["crop"])
+    pred = apply_fn(model, b["crop"], train=train)
     emd = _make_sinkhorn(cfg)
     mse = lambda p, t: torch.mean((p - t) ** 2)  # noqa: E731
     metrics = {
@@ -114,9 +202,9 @@ def train_step(state: RegressionState, batch: dict) -> dict:
     terms; with cfg.log_grad_norms also "grad_norm" and "grad_norm_<head>" of
     the gradients before clipping) as detached 0-d tensors. The gradients
     stay in the parameters' ``.grad`` after the update."""
-    cfg, model = state.cfg, state.model.train()
+    cfg, model = state.cfg, state.model
     state.opt.zero_grad(set_to_none=True)
-    total, metrics, _ = loss_fn(model, batch, cfg)
+    total, metrics, _ = loss_fn(model, batch, cfg, True, state.apply_fn)
     total.backward()
     metrics = {k: v.detach() for k, v in metrics.items()}
     if cfg.log_grad_norms:
@@ -136,5 +224,5 @@ def train_step(state: RegressionState, batch: dict) -> dict:
 @torch.no_grad()
 def eval_step(state: RegressionState, batch: dict):
     """Eval-mode forward and the same loss terms, no update: (metrics, pred)."""
-    _, metrics, pred = loss_fn(state.model.eval(), batch, state.cfg)
+    _, metrics, pred = loss_fn(state.model, batch, state.cfg, False, state.apply_fn)
     return metrics, pred

@@ -246,13 +246,19 @@ def test_parallel_exits_with_its_message(run, cli, capsys):
     with pytest.raises(SystemExit) as exc:
         main(args + ["--parallel", "--device", "cpu"])
     assert exc.value.code == 2
-    assert "ROADMAP.md §1 item 6" in capsys.readouterr().err
+    assert 'ROADMAP.md §1, "Multi-GPU"' in capsys.readouterr().err
 
 
-def test_eval_apply_takes_only_standard(run, capsys):
-    with pytest.raises(SystemExit):
-        ttest_regression.main(run["reg_args"] + ["--eval_apply", "fast", "--device", "cpu"])
-    assert "invalid choice: 'fast'" in capsys.readouterr().err
+def test_eval_apply_takes_only_standard(run, tmp_path):
+    """--eval_apply takes both of the JAX CLI's forwards: 'standard' (the
+    DenseNet module) writes the pickles the default 'fast' (the buffer
+    forward) wrote, at the pred bar."""
+    ttest_regression.main(run["reg_args"] + ["--eval_apply", "standard", "--device", "cpu",
+                                             "--out_dir", str(tmp_path)])
+    for n in CROPS:
+        got, ref = _pickle(tmp_path / f"{n}.pickle"), _pickle(run["out"]["t_reg"] / f"{n}.pickle")
+        for k in ref:
+            np.testing.assert_allclose(got[k], ref[k], **PRED_BAR, err_msg=f"{n} {k}")
 
 
 def test_infer_bfloat16_and_clip_flags(run, tmp_path):
