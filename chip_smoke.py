@@ -5,7 +5,8 @@ Drives the port's three main paths at full width (RegressionConfig() and
 ProjectorConfig() defaults, weights drawn from seeded torch.Generators):
 serving — crop -> DenseNet-BC regressor -> Gaussian-splat guide -> SPADE
 generator -> 128x256 HDR env map —, SPADE GAN training — alternating
-generator and discriminator steps at batch 8 — and regression training —
+generator and discriminator steps at batch 8, then with the VGG19 term,
+fused, scanned and under use_vae — and regression training —
 Adam steps of the DenseNet-BC regressor under the Sinkhorn + L2 loss at
 batch 16 —, then serves from files through the inference CLIs (cli.infer,
 cli.test_regression: EXR crops and JAX-layout checkpoints in, maps,
@@ -57,6 +58,18 @@ on failure:
 9. tcpu     one G step and one D step at batch 2 on a reduced config, card
             against the CPU plain path: losses, and every gradient leaf
             within a bar measured from the CPU's own spread under a jitter
+9b. gan     the rest of GAN training on phase 6's state and batches: a G
+            step with the VGG19 perceptual term (random_vgg19_params(0)),
+            the term alone, fused_gan_step with VGG (launches asserted: the
+            G + D pair's less the D step's generator forward, B1 52), one
+            profiled fused step (idle share, top device work),
+            scanned_fused_steps over 4 steps under torch.cuda's sync debug
+            mode (no host synchronisation inside) against 4 iterated fused
+            steps from the same start (bit for bit, with cuDNN's
+            deterministic algorithms), a use_vae G and D step (KLD finite, fc_mu
+            and fc_var moved); times (CUDA events, median of 5) and peak
+            memory; then phase 9's card-vs-CPU comparison for a fused step
+            with VGG and a use_vae G step
 10. rtrain  3 regression train_steps of batch 16 (RegressionConfig(), the
             default train_forward "buffer"), the dense-conv kernels'
             launches read around each (48 each); metrics
@@ -89,6 +102,8 @@ on failure:
             cli.train_regression (batch 16) and cli.train_projector (batch
             8) for 1 epoch each, then --resume to 2 epochs from their
             opt.json, and one train_regression --dtype bfloat16 epoch;
+            train_projector --scan_steps 4 --vgg_random for an epoch, then
+            --resume --fused to 2 (metrics.csv rows with VGG);
             every kernel's launches read around each run (48
             each per regression step; G + D per GAN step); resumed runs
             start at the saved step, restored states equal their files bit
@@ -105,7 +120,8 @@ on failure:
 17. kernels one JSON line with every ported kernel, each with its bound on
             the CUDA cores (bound_ms) and on the tensor cores (tc_bound_ms)
             and its launches in phase 15 (tcli_launches; B7's in serving,
-            serving_launches)
+            serving_launches; B1-B6's in phase 9b, gan_launches, and per
+            fused step, fused_step_launches)
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 run from a directory without the package beside it, it exits non-zero and
@@ -149,6 +165,12 @@ EXPECTED_G_STEP = {"sphere_conv_s1": 48, "sphere_conv_s2": 6, "sphere_conv_dx_s1
 EXPECTED_D_STEP = {"sphere_conv_s1": 48, "sphere_conv_s2": 6, "sphere_conv_dx_s1": 0,
                    "sphere_conv_dx_s1_triple": 4, "sphere_conv_dk": 10,
                    "sphere_conv_dx_s2": 4}
+# the fused step (phase 9b): the G step's launches and the D step's but for
+# the D step's generator forward (B1 44), which the fused step saves: B1 52
+EXPECTED_FUSED_STEP = {n: EXPECTED_G_STEP[n] + EXPECTED_D_STEP[n]
+                       - (LAUNCHES_PER_FORWARD if n == "sphere_conv_s1" else 0)
+                       for n in EXPECTED_G_STEP}
+SCAN_STEPS = 4  # phase 9b's scanned_fused_steps
 # the regression training path: full width, the reference's batch 16
 # (RegressionNetwork/train.py:25); each of the 48 dense layers launches the
 # fused conv forward (B7), its dx (B7') and its dK (B8) once per step
@@ -658,8 +680,55 @@ def run_training(torch, np, dev, seed: int, tables: dict, save) -> dict:
         if "dense_conv_yardstick_ms" in v:
             entries[-1]["dense_conv_yardstick_ms"] = v["dense_conv_yardstick_ms"]
     return {"entries": entries, "b1_train_launches": totals["sphere_conv_s1"],
-            "b1_train": per_kernel["sphere_conv_s1"]}
+            "b1_train": per_kernel["sphere_conv_s1"], "state": state, "batches": batches}
 
+
+
+def small_projector_cfg():
+    """Phases 9 and 9b's reduced config: ngf 16, ndf 16, 64x128 env maps."""
+    from emlight_tpu_torch.config import AnchorConfig, ProjectorConfig
+
+    return dataclasses.replace(ProjectorConfig(), ngf=16, ndf=16, crop_size=128,
+                               anchors=dataclasses.replace(AnchorConfig(), env_h=64, env_w=128))
+
+
+def card_vs_cpu_runs(np, dev, cfg, seed: int) -> dict:
+    """Phases 9 and 9b's three runs of a step, as {name: (device, batch)}:
+    on the card, on the CPU, and on the CPU with crop and target jittered
+    by JITTER relative (the CPU's own spread)."""
+    from emlight_tpu_torch.train.data import synthetic_projector_batch
+
+    sb = synthetic_projector_batch(2, n_anchors=cfg.anchors.n_anchors, crop_size=64,
+                                   env_hw=(64, 128), seed=seed + 30)
+    rng = np.random.default_rng(seed + 31)
+    jittered = {k: (v * (1 + JITTER * rng.standard_normal(v.shape))).astype(np.float32)
+                if k in ("crop", "warped") else v for k, v in sb.items()}
+    return {"card": (dev, sb), "cpu": ("cpu", sb), "cpu jittered": ("cpu", jittered)}
+
+
+def hold_card_to_cpu(losses: dict, grads: dict, nets) -> tuple[float, list]:
+    """The card's losses within 1e-4 relative of the CPU's, and each
+    gradient leaf of each net within the larger of GRAD_REL and GRAD_SPREAD
+    times the CPU's own spread (grad_ratios of the jittered run); raises
+    otherwise. Returns the losses' worst relative error and one summary per
+    net."""
+    loss_err = max(abs(v - losses["cpu"][k]) / max(abs(losses["cpu"][k]), 1e-6)
+                   for k, v in losses["card"].items())
+    if loss_err > 1e-4:
+        raise AssertionError(f"card vs CPU losses differ by {loss_err} relative: {losses}")
+    summary = []
+    for net in nets:
+        spread = grad_ratios(grads["cpu jittered", net], grads["cpu", net])
+        card = grad_ratios(grads["card", net], grads["cpu", net])
+        bar = max(GRAD_REL, GRAD_SPREAD * spread[-1][0])
+        bad = [r for r in card if r[0] > bar]
+        if bad:
+            raise AssertionError(f"{len(bad)} of {len(card)} {net} gradient leaves above {bar:.3e} "
+                                 f"of their scale (CPU's own spread {spread[-1]}); worst {bad[-5:]}")
+        summary.append(f"{net}: worst leaf {card[-1][0]:.3e} ({card[-1][1]}), "
+                       f"{sum(r[0] > GRAD_REL for r in card)} of {len(card)} above {GRAD_REL}, "
+                       f"CPU's own spread {spread[-1][0]:.3e}, bar {bar:.3e}")
+    return loss_err, summary
 
 
 def run_card_vs_cpu(torch, np, dev, seed: int) -> None:
@@ -676,21 +745,11 @@ def run_card_vs_cpu(torch, np, dev, seed: int) -> None:
     than the card's rounding does (both printed), and each leaf of the card
     must lie within GRAD_SPREAD times the largest change that jitter makes,
     and never needs to lie closer than GRAD_REL."""
-    import dataclasses
-
-    from emlight_tpu_torch.config import AnchorConfig, ProjectorConfig
     from emlight_tpu_torch.train import projector as TP
-    from emlight_tpu_torch.train.data import synthetic_projector_batch
 
-    small = dataclasses.replace(ProjectorConfig(), ngf=16, ndf=16, crop_size=128,
-                                anchors=dataclasses.replace(AnchorConfig(), env_h=64, env_w=128))
-    sb = synthetic_projector_batch(2, n_anchors=small.anchors.n_anchors, crop_size=64,
-                                   env_hw=(64, 128), seed=seed + 30)
-    rng = np.random.default_rng(seed + 31)
-    jittered = {k: (v * (1 + JITTER * rng.standard_normal(v.shape))).astype(np.float32)
-                if k in ("crop", "warped") else v for k, v in sb.items()}
+    small = small_projector_cfg()
     t0 = time.perf_counter()
-    runs = {"card": (dev, sb), "cpu": ("cpu", sb), "cpu jittered": ("cpu", jittered)}
+    runs = card_vs_cpu_runs(np, dev, small, seed)
     states = {name: TP.create_state(small, device=d, seed=seed + 20) for name, (d, _) in runs.items()}
     losses, grads, fakes = {}, {}, {}
     for name, st in states.items():
@@ -706,30 +765,265 @@ def run_card_vs_cpu(torch, np, dev, seed: int) -> None:
         ld = TP.discriminator_step(st, runs[name][1])
         losses[name].update({k: v.item() for k, v in ld.items()})
         grads[name, "D"] = {n: p.grad.cpu() for n, p in st.d.named_parameters()}
-    loss_err = max(abs(v - losses["cpu"][k]) / max(abs(losses["cpu"][k]), 1e-6)
-                   for k, v in losses["card"].items())
-    if loss_err > 1e-4:
-        raise AssertionError(f"card vs CPU losses differ by {loss_err} relative: {losses}")
+    loss_err, summary = hold_card_to_cpu(losses, grads, ("G", "D"))
     moved = {name: ((fakes[name] - fakes["cpu"]).abs().max() / fakes["cpu"].abs().max()).item()
              for name in ("card", "cpu jittered")}
-    summary = []
-    for net in ("G", "D"):
-        spread = grad_ratios(grads["cpu jittered", net], grads["cpu", net])
-        card = grad_ratios(grads["card", net], grads["cpu", net])
-        bar = max(GRAD_REL, GRAD_SPREAD * spread[-1][0])
-        bad = [r for r in card if r[0] > bar]
-        if bad:
-            raise AssertionError(f"{len(bad)} of {len(card)} {net} gradient leaves above {bar:.3e} "
-                                 f"of their scale (CPU's own spread {spread[-1]}); worst {bad[-5:]}")
-        summary.append(f"{net}: worst leaf {card[-1][0]:.3e} ({card[-1][1]}), "
-                       f"{sum(r[0] > GRAD_REL for r in card)} of {len(card)} above {GRAD_REL}, "
-                       f"CPU's own spread {spread[-1][0]:.3e}, bar {bar:.3e}")
     log(f"[tcpu] ngf/ndf 16, 64x128, batch 2: G step and D step, card vs CPU plain path: "
         f"losses within {loss_err:.3e} relative (bar 1e-4); generated map moved "
         f"{moved['card']:.3e} by the card's rounding, {moved['cpu jittered']:.3e} by a "
         f"{JITTER:g} relative jitter of crop and target; gradient leaves against their scale, "
         f"bar the larger of {GRAD_REL} and {GRAD_SPREAD:g}x the CPU's own spread under that "
         f"jitter: " + "; ".join(summary) + f"; took {time.perf_counter() - t0:.1f} s")
+
+
+def state_snapshot(state) -> dict:
+    """A copy of a ProjectorState's models, optimizers and step counts."""
+    return {"g": copy.deepcopy(state.g.state_dict()), "d": copy.deepcopy(state.d.state_dict()),
+            "opt_g": copy.deepcopy(state.opt_g.state_dict()),
+            "opt_d": copy.deepcopy(state.opt_d.state_dict()),
+            "steps": (state.step, state.d_step)}
+
+
+def state_restore(state, snap: dict) -> None:
+    """Put a state_snapshot back; the snapshot stays as it was (an
+    optimizer's load_state_dict adopts the moment tensors it is given,
+    which its next step would update in place)."""
+    state.g.load_state_dict(snap["g"])
+    state.d.load_state_dict(snap["d"])
+    state.opt_g.load_state_dict(copy.deepcopy(snap["opt_g"]))
+    state.opt_d.load_state_dict(copy.deepcopy(snap["opt_d"]))
+    state.step, state.d_step = snap["steps"]
+
+
+def run_gan_objective(torch, np, dev, seed: int, tables: dict, train: dict, smi) -> dict:
+    """Phase 9b: the rest of GAN training at full width, batch BATCH, on
+    phase 6's state and batches: (a) a G step with the VGG19 term on
+    (random_vgg19_params(0), perf-identical to pretrained weights); (b)
+    fused_gan_step with VGG; (c) scanned_fused_steps over SCAN_STEPS
+    against as many iterated fused steps from the same start, the scan run
+    under torch.cuda's sync debug mode (a host synchronisation inside it
+    fails the phase), bit for bit under cuDNN's deterministic algorithms
+    (its default weight gradient of the encoder's convs differs run to
+    run); (d) a use_vae G step and D step; (e) card against the
+    CPU plain path, as phase 9: a fused step with VGG and a use_vae G step.
+    Every step's kernel launches are read around it and asserted (VGG adds
+    none; the fused step EXPECTED_FUSED_STEP). Times by CUDA events (median
+    of 5), peak memory, one profiled fused step. Returns the launches of
+    every kernel over the phase and the numbers it logs."""
+    import warnings
+
+    from emlight_tpu_torch.nn import sphere_conv_kernel as SK
+    from emlight_tpu_torch.nn.vgg import VGG19Features, random_vgg19_params, vgg_perceptual_loss
+    from emlight_tpu_torch.train import projector as TP
+    from emlight_tpu_torch.train.checkpoint import train_state_tree
+
+    t_phase = time.perf_counter()
+    state, batches = train["state"], train["batches"]
+    cfg = state.cfg
+    names = list(EXPECTED_G_STEP)
+    wrappers = {n: getattr(SK, n) for n in names}
+    launches = dict.fromkeys(names, 0)
+    vgg = VGG19Features(random_vgg19_params(0), device=dev)
+
+    def counted(fn, per_step: dict, steps: int, what: str):
+        torch.cuda.synchronize()
+        for w_ in wrappers.values():
+            w_.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {n: wrappers[n].launches for n in names}
+        want = {n: per_step[n] * steps for n in names}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+        for n in names:
+            launches[n] += got[n]
+        return out
+
+    def finite(metrics: dict, what: str):
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise AssertionError(f"{what}: non-finite {bad}")
+
+    def peak_gib(fn) -> float:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    out: dict = {}
+    # (a) the G step with the VGG19 term
+    g_losses, _ = counted(lambda: TP.generator_step(state, batches[0], vgg), EXPECTED_G_STEP, 1,
+                          "G step with VGG")
+    finite(g_losses, "G step with VGG")
+    if not g_losses["VGG"].item() > 0:
+        raise AssertionError(f"VGG term {g_losses['VGG'].item()}")
+    out["g_vgg_ms"] = cuda_ms(torch, lambda: TP.generator_step(state, batches[0], vgg),
+                              warmup=1, iters=5)
+    out["g_vgg_peak_gib"] = peak_gib(lambda: TP.generator_step(state, batches[0], vgg))
+    out["g_peak_gib"] = peak_gib(lambda: TP.generator_step(state, batches[0]))
+    some_map = torch.rand(BATCH, *batches[0]["warped"].shape[1:], device=dev) * 50
+
+    def vgg_term():  # the term alone: fake and real forwards, the fake's backward
+        f = some_map.clone().requires_grad_(True)
+        vgg_perceptual_loss(vgg, f, batches[0]["warped"]).backward()
+
+    out["vgg_term_ms"] = cuda_ms(torch, vgg_term, warmup=1, iters=5)
+    log(f"[gan] {smi}: batch {BATCH}: generator_step with VGG {out['g_vgg_ms']:.3f} ms "
+        f"(phase 8's without: {tables['train_steps_ms']['G']:.3f} ms), the VGG term alone "
+        f"(fake and real forwards, fake's backward) {out['vgg_term_ms']:.3f} ms; peak memory "
+        f"{out['g_vgg_peak_gib']:.3f} GiB with VGG, {out['g_peak_gib']:.3f} without; losses "
+        + ", ".join(f"{k} {v.item():.5g}" for k, v in g_losses.items())
+        + f"; launches as phase 8's G step: {EXPECTED_G_STEP}")
+
+    # (b) the fused step with VGG
+    u_before = [b_.clone() for n, b_ in state.d.named_buffers() if n.endswith(".u")]
+    metrics, _ = counted(lambda: TP.fused_gan_step(state, batches[1], vgg), EXPECTED_FUSED_STEP,
+                         1, "fused step")
+    finite(metrics, "fused step")
+    if any(torch.equal(a, b_) for a, b_ in zip(
+            u_before, [b_ for n, b_ in state.d.named_buffers() if n.endswith(".u")])):
+        raise AssertionError("fused step: a D spectral u did not change")
+    out["fused_ms"] = cuda_ms(torch, lambda: TP.fused_gan_step(state, batches[1], vgg),
+                              warmup=1, iters=5)
+    out["fused_peak_gib"] = peak_gib(lambda: TP.fused_gan_step(state, batches[1], vgg))
+    pair_ms = out["g_vgg_ms"] + tables["train_steps_ms"]["D"]
+    log(f"[gan] fused_gan_step with VGG {out['fused_ms']:.3f} ms against the alternating G "
+        f"(with VGG) + D {pair_ms:.3f} ms ({out['fused_ms'] / pair_ms:.4f}x) and phase 8's "
+        f"VGG-off G + D {sum(tables['train_steps_ms'].values()):.3f} ms; peak memory "
+        f"{out['fused_peak_gib']:.3f} GiB; launches {EXPECTED_FUSED_STEP} (the pair's less the "
+        f"D step's generator forward, {LAUNCHES_PER_FORWARD} of B1); losses "
+        + ", ".join(f"{k} {v.item():.5g}" for k, v in metrics.items()))
+    prof = device_profile(torch, lambda: TP.fused_gan_step(state, batches[1], vgg), top=10)
+    if prof is None:
+        log("[gan] the profiler saw no device work: idle share not measured")
+    else:
+        wall_ms, busy_ms, ranked = prof
+        out["fused_profile"] = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                                "top": [list(r) for r in ranked]}
+        log(f"[gan] one fused step under the profiler: {wall_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}; top device work:")
+        for name, ms, n in ranked:
+            log(f"[gan]   {ms:9.3f} ms  {ms / busy_ms:.4f}  x{n:<4d} {name[:100]}")
+
+    # (c) the scan against the iterated fused step, from one start, bit for
+    # bit: with cuDNN's deterministic algorithms (the hand-written kernels
+    # sum in a fixed order; cuDNN's default weight gradient of the encoder's
+    # convs does not, and differs run to run)
+    stacked = {k: torch.stack([batches[i % len(batches)][k] for i in range(SCAN_STEPS)])
+               for k in batches[0]}
+    start = state_snapshot(state)
+
+    def iterated():
+        rows = [TP.fused_gan_step(state, {k: v[i] for k, v in stacked.items()}, vgg)[0]
+                for i in range(SCAN_STEPS)]
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    def scan_watched():  # under torch.cuda's sync debug mode: a sync warns
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            return TP.scanned_fused_steps(state, stacked, vgg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    ends = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for what in ("iterated", "scanned"):
+            state_restore(state, start)
+            if what == "scanned":
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    m, _ = counted(scan_watched, EXPECTED_FUSED_STEP, SCAN_STEPS,
+                                   "scanned_fused_steps")
+                syncs = [str(w_.message) for w_ in caught  # (not the mode's own notice)
+                         if "synchroniz" in str(w_.message)
+                         and "prototype" not in str(w_.message)]
+                if syncs:
+                    raise AssertionError(f"scanned_fused_steps synchronised the host "
+                                         f"{len(syncs)} times: {syncs[:3]}")
+            else:
+                m = counted(iterated, EXPECTED_FUSED_STEP, SCAN_STEPS, what)
+            finite(m, what)
+            ends[what] = (train_state_tree(state), m)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (a, ma), (b, mb) = ends["iterated"], ends["scanned"]
+    diff = [k for k in ma if not torch.equal(ma[k], mb[k])]
+
+    def compare(x, y, where=""):
+        for k, v in x.items():
+            if isinstance(v, dict):
+                compare(v, y[k], f"{where}{k}/")
+            elif not np.array_equal(v, y[k]):
+                diff.append(where + k)
+
+    compare(a, b)
+    if diff:
+        raise AssertionError(f"the scan differs from {SCAN_STEPS} iterated fused steps at "
+                             f"{len(diff)} leaves or metrics: {diff[:5]}")
+    state_restore(state, start)
+    t0 = time.perf_counter()
+    out["scan_ms_per_step"] = cuda_ms(
+        torch, lambda: TP.scanned_fused_steps(state, stacked, vgg), warmup=1, iters=3) / SCAN_STEPS
+    log(f"[gan] scanned_fused_steps over {SCAN_STEPS} steps: no host synchronisation inside "
+        f"(sync debug mode); launches {SCAN_STEPS} x the fused step's; its metrics and final "
+        f"state equal {SCAN_STEPS} iterated fused_gan_step calls from the same start bit for "
+        f"bit (cuDNN's deterministic algorithms for the comparison); "
+        f"{out['scan_ms_per_step']:.3f} ms per step (CUDA events, median of 3 scans, cuDNN's "
+        f"default algorithms) against fused_gan_step's {out['fused_ms']:.3f}; timing took "
+        f"{time.perf_counter() - t0:.1f} s")
+    del start, ends, a, b
+
+    # (d) use_vae at full width
+    vstate = TP.create_state(dataclasses.replace(cfg, use_vae=True), device=dev, seed=seed + 40)
+    heads = {n: p.detach().clone() for n, p in vstate.g.named_parameters()
+             if n.startswith(("netE.fc_mu", "netE.fc_var"))}
+    vg, _ = counted(lambda: TP.generator_step(vstate, batches[0]), EXPECTED_G_STEP, 1,
+                    "use_vae G step")
+    vd = counted(lambda: TP.discriminator_step(vstate, batches[0]), EXPECTED_D_STEP, 1,
+                 "use_vae D step")
+    finite({**vg, **vd}, "use_vae steps")
+    moved = [n for n, p in vstate.g.named_parameters() if n in heads and not torch.equal(p, heads[n])]
+    if len(moved) != len(heads) or len(heads) != 4:
+        raise AssertionError(f"use_vae G step moved {moved} of {sorted(heads)}")
+    out["vae_g_ms"] = cuda_ms(torch, lambda: TP.generator_step(vstate, batches[0]), warmup=1,
+                              iters=5)
+    log(f"[gan] use_vae: G step KLD {vg['KLD'].item():.6g}, loss_G {vg['loss_G'].item():.6g}, "
+        f"D step loss_D {vd['loss_D'].item():.6g}; fc_mu and fc_var moved ({len(moved)} "
+        f"leaves); launches as phase 8's G and D steps; G step {out['vae_g_ms']:.3f} ms")
+    del vstate
+
+    # (e) card against the CPU plain path at phase 9's reduced config
+    t0 = time.perf_counter()
+    small = small_projector_cfg()
+    runs = card_vs_cpu_runs(np, dev, small, seed)
+    losses, grads = {}, {}
+    for name, (d, batch) in runs.items():
+        st = TP.create_state(small, device=d, seed=seed + 20)
+        m, _ = TP.fused_gan_step(st, batch, VGG19Features(random_vgg19_params(0), device=d))
+        losses[name] = {k: v.item() for k, v in m.items()}
+        grads[name, "G"] = {n: p.grad.cpu() for n, p in st.g.named_parameters()}
+        grads[name, "D"] = {n: p.grad.cpu() for n, p in st.d.named_parameters()}
+    fused_err, fused_summary = hold_card_to_cpu(losses, grads, ("G", "D"))
+    vsmall = dataclasses.replace(small, use_vae=True)
+    eps = torch.from_numpy(np.random.default_rng(seed + 32).standard_normal(
+        (2, 32 * small.ngf)).astype(np.float32))
+    losses, grads = {}, {}
+    for name, (d, batch) in runs.items():
+        st = TP.create_state(vsmall, device=d, seed=seed + 21)
+        m, _ = TP.generator_step(st, batch, eps=eps.to(d))
+        losses[name] = {k: v.item() for k, v in m.items()}
+        grads[name, "G"] = {n: p.grad.cpu() for n, p in st.g.named_parameters()}
+    vae_err, vae_summary = hold_card_to_cpu(losses, grads, ("G",))
+    log(f"[gan] card vs CPU plain path, phase 9's config and bars: fused step with VGG: losses "
+        f"within {fused_err:.3e}; " + "; ".join(fused_summary) + f". use_vae G step (one eps "
+        f"on both): losses within {vae_err:.3e}; " + "; ".join(vae_summary)
+        + f"; took {time.perf_counter() - t0:.1f} s")
+    out["launches"] = launches
+    log(f"[gan] launches over the phase: {launches}; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def run_regression(torch, np, dev, seed: int, tables: dict, save) -> list:
@@ -1434,10 +1728,14 @@ def run_train_cli(torch, np, dev, seed: int, tables: dict, smi) -> dict:
     gives back that file's every leaf bit for bit (parameters, BatchNorm
     statistics, spectral u and v, Adam moments and counts); metrics.csv has
     one finite row per step; test_projector's maps equal inference on the
-    same batches bit for bit; the eval JSON lines are finite. Times: each
-    training loop's median step (CUDA events) beside phase 8's or 12's
-    step, its wait on the data queue per step and that wait's share of the
-    loop, and read_hdr per PIZ HALF crop, native beside core/exr.py."""
+    same batches bit for bit; the eval JSON lines are finite. Then
+    cli.train_projector --scan_steps SCAN_STEPS --vgg_random for an epoch
+    and --resume --fused to the next (EXPECTED_FUSED_STEP per step; the
+    resumed run starts at the saved step; metrics.csv rows with VGG).
+    Times: each training loop's median step (CUDA events) beside phase 8's,
+    9b's or 12's step, its wait on the data queue per step and that wait's
+    share of the loop, and read_hdr per PIZ HALF crop, native beside
+    core/exr.py."""
     import csv
     import math
     import shutil
@@ -1576,6 +1874,29 @@ def run_train_cli(torch, np, dev, seed: int, tables: dict, smi) -> dict:
                               "wait_s": p1["wait_s"] + p2["wait_s"],
                               "loop_s": p1["loop_s"] + p2["loop_s"]}
 
+    # 15b'. the rest of GAN training from files: --scan_steps SCAN_STEPS
+    # --vgg_random for an epoch, then --resume --fused to the next
+    vgg_run = os.path.join(work, "proj_vgg_run")
+    for what, argv in (
+            ("train_projector_scan", ["--data_root", proj_root, "--out_dir", vgg_run,
+                                      "--epochs", "1", "--batch_size", str(TCLI_PROJ_BATCH),
+                                      "--scan_steps", str(SCAN_STEPS), "--vgg_random"]),
+            ("train_projector_fused", ["--data_root", proj_root, "--out_dir", vgg_run,
+                                       "--epochs", "2", "--resume", "--fused",
+                                       "--scan_steps", "0"])):
+        st, got, wall = counted(cli_train_projector.main, argv)
+        expect(got, EXPECTED_FUSED_STEP, proj_steps, what)
+        out[what] = {"runs_s": [wall], "step_ms": st["step_ms"], "wait_s": st["wait_s"],
+                     "loop_s": st["loop_s"], "steps": (st["restored"], st["start"], st["step"])}
+    if (out["train_projector_scan"]["steps"], out["train_projector_fused"]["steps"]) != (
+            (None, 0, proj_steps), (proj_steps, proj_steps, 2 * proj_steps)):
+        raise AssertionError(f"train_projector --scan_steps then --resume --fused: (restored, "
+                             f"start, step) {out['train_projector_scan']['steps']}, "
+                             f"{out['train_projector_fused']['steps']}")
+    vgg_rows = metrics_rows(vgg_run, 2 * proj_steps)
+    if not all(float(r["VGG"]) > 0 for r in vgg_rows):
+        raise AssertionError(f"{vgg_run}/metrics.csv: a row without the VGG term")
+
     # 15c. test_projector, eval_projector, eval_metrics on the final checkpoints
     proj_ckpt = os.path.join(proj_run, "checkpoints", "latest.msgpack")
     reg_ckpt = os.path.join(reg_run, "checkpoints", "latest.msgpack")
@@ -1633,7 +1954,11 @@ def run_train_cli(torch, np, dev, seed: int, tables: dict, smi) -> dict:
              tables["regression_routes"]["routes"]["buffer_bfloat16"]["ms"],
              "phase 12's bf16 buffer train_step"),
             ("train_projector", tables["train_steps_ms"]["G"] + tables["train_steps_ms"]["D"],
-             "phase 8's G + D step")):
+             "phase 8's G + D step"),
+            ("train_projector_scan", tables["gan"]["scan_ms_per_step"],
+             f"phase 9b's scanned step (--scan_steps {SCAN_STEPS} --vgg_random)"),
+            ("train_projector_fused", tables["gan"]["fused_ms"],
+             "phase 9b's fused step with VGG (--resume --fused)")):
         r = out[cli]
         n = len(r["step_ms"])
         r["median_step_ms"] = statistics.median(r["step_ms"])
@@ -1655,6 +1980,10 @@ def run_train_cli(torch, np, dev, seed: int, tables: dict, smi) -> dict:
     log(f"[tcli] launches over the phase: {launches}; per regression step {EXPECTED_REG_STEP}, "
         f"per G+D step {pair}, B1 {LAUNCHES_PER_FORWARD} per test_projector / eval_projector "
         f"batch ({batches} batches each), B7 48 per eval_metrics batch")
+    log(f"[tcli] train_projector --scan_steps {SCAN_STEPS} --vgg_random for an epoch, then "
+        f"--resume --fused: launches {SCAN_STEPS} x EXPECTED_FUSED_STEP per epoch, the resumed "
+        f"run starts at step {proj_steps}, metrics.csv {2 * proj_steps} finite rows with VGG "
+        f"(last {float(vgg_rows[-1]['VGG']):.5g})")
     log(f"[tcli] checks: resumed runs start at the saved step ({reg_steps}, {proj_steps}); "
         f"restored states equal their files bit for bit; metrics.csv {2 * reg_steps} and "
         f"{2 * proj_steps} finite rows; test_projector's {TCLI_SAMPLES} maps equal inference "
@@ -2028,6 +2357,9 @@ def main(argv=None) -> int:
     train = run_training(torch, np, dev, args.seed, tables, save)
     save()
     run_card_vs_cpu(torch, np, dev, args.seed)
+    tables["gan"] = run_gan_objective(torch, np, dev, args.seed, tables, train, smi)
+    del train["state"], train["batches"]
+    save()
     reg_entries = run_regression(torch, np, dev, args.seed, tables, save)
     run_regression_card_vs_cpu(torch, np, dev, args.seed)
     tables["cli"] = run_cli(torch, np, dev, args.seed, regressor, generator, reg_cfg, proj_cfg,
@@ -2064,6 +2396,9 @@ def main(argv=None) -> int:
     }] + train["entries"] + reg_entries}
     for entry in kernels_line["kernels"]:  # the training CLIs' launches, phase 15
         entry["tcli_launches"] = tables["tcli"]["launches"][entry["name"]]
+        if entry["name"] in EXPECTED_FUSED_STEP:  # phase 9b's, and per fused step
+            entry["gan_launches"] = tables["gan"]["launches"][entry["name"]]
+            entry["fused_step_launches"] = EXPECTED_FUSED_STEP[entry["name"]]
         if entry["name"] == "dense_conv_fwd":  # the regressor's buffer eval forward, phase 4
             entry["serving_launches"] = serving_b7
     log(smi)

@@ -24,20 +24,13 @@ from ..train.checkpoint import load_checked, restore_regressor
 from ..train.jax_weights import densenet_state_from_jax
 from ..train.torch_import import import_densenet_state_dict
 
-__all__ = ["PARALLEL_NOT_PORTED", "GAN_STEP_NOT_PORTED", "VGG_NOT_PORTED", "add_device_flag",
-           "checked_device", "refuse", "regression_config", "saved_dtype", "projector_config",
-           "pooled_hw", "load_regressor", "regressor_apply", "crop_names", "tonemapped_crop",
-           "stacked", "summary_line", "next_timed"]
+__all__ = ["PARALLEL_NOT_PORTED", "add_device_flag", "checked_device", "refuse",
+           "regression_config", "saved_dtype", "projector_config", "pooled_hw", "load_regressor",
+           "regressor_apply", "crop_names", "tonemapped_crop", "stacked", "summary_line",
+           "next_timed"]
 
 PARALLEL_NOT_PORTED = ("--parallel (the batch sharded over several cards) is not ported yet "
                        "(ROADMAP.md §1, \"Multi-GPU\"); run without it on one card")
-GAN_STEP_NOT_PORTED = ("--fused and --scan_steps (the fused G+D step) are not ported yet "
-                       "(ROADMAP.md §1, \"The rest of GAN training\"); run the alternating "
-                       "G/D steps without them")
-VGG_NOT_PORTED = ("the VGG19 perceptual term (--vgg_npz with a file, $EMLIGHT_VGG19_NPZ, "
-                  "--vgg_random) is not ported yet (ROADMAP.md §1, \"The rest of GAN "
-                  "training\"); run without it, as the JAX CLI does when no VGG19 weights "
-                  "are present")
 
 
 def add_device_flag(ap: argparse.ArgumentParser) -> None:

@@ -187,18 +187,30 @@ def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     ho, wo = size
     if (h, w) == (ho, wo):
         return x
-    ri = torch.floor(torch.arange(ho, dtype=torch.float32) * (h / ho)).long().to(x.device)
-    ci = torch.floor(torch.arange(wo, dtype=torch.float32) * (w / wo)).long().to(x.device)
-    return x[:, ri][:, :, ci]
+    dev = str(x.device)
+    return x[:, _nearest_index(h, ho, dev)][:, :, _nearest_index(w, wo, dev)]
 
 
-def _axis_weights(n_in: int, n_out: int, device):
-    pos = (torch.arange(n_out, dtype=torch.float32) + 0.5) * (n_in / n_out) - 0.5
-    pos = pos.clamp(0.0, n_in - 1)
-    lo = torch.floor(pos).long()
-    hi = torch.clamp(lo + 1, max=n_in - 1)
-    frac = pos - lo
-    return lo.to(device), hi.to(device), frac.to(device)
+# The index and weight tables below go onto the device once per size: a copy
+# from pageable host memory in every call would make the host wait for the
+# card. They are made outside inference mode, so that a table first made in
+# serving can be saved for a training step's backward.
+@functools.lru_cache(maxsize=None)
+def _nearest_index(n_in: int, n_out: int, device: str) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.floor(torch.arange(n_out, dtype=torch.float32) * (n_in / n_out)).long().to(
+            device)
+
+
+@functools.lru_cache(maxsize=None)
+def _axis_weights(n_in: int, n_out: int, device: str):
+    with torch.inference_mode(False):
+        pos = (torch.arange(n_out, dtype=torch.float32) + 0.5) * (n_in / n_out) - 0.5
+        pos = pos.clamp(0.0, n_in - 1)
+        lo = torch.floor(pos).long()
+        hi = torch.clamp(lo + 1, max=n_in - 1)
+        frac = pos - lo
+        return lo.to(device), hi.to(device), frac.to(device)
 
 
 def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
@@ -208,8 +220,8 @@ def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     ho, wo = size
     if (h, w) == (ho, wo):
         return x
-    r0, r1, fr = _axis_weights(h, ho, x.device)
-    c0, c1, fc = _axis_weights(w, wo, x.device)
+    r0, r1, fr = _axis_weights(h, ho, str(x.device))
+    c0, c1, fc = _axis_weights(w, wo, str(x.device))
     rows = x[:, r0] * (1 - fr)[None, :, None, None] + x[:, r1] * fr[None, :, None, None]
     return (rows[:, :, c0] * (1 - fc)[None, None, :, None]
             + rows[:, :, c1] * fc[None, None, :, None])

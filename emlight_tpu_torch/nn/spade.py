@@ -226,8 +226,9 @@ class SPADEGenerator(nn.Module):
 
     Encoder latent reshaped to (16nf, 1, 2) in NCHW order, nearest-resized to
     (sh, sw), 7 SPADE blocks with 5 nearest 2x upsamples, a SphereConv head,
-    (tanh+1)*25 HDR range. With use_vae the latent is mu; use_vae training
-    (the reparameterized latent) is not ported.
+    (tanh+1)*25 HDR range. With use_vae (upstream SPADE's --use_vae) the
+    encoder gives (mu, logvar); train mode takes the reparameterized latent
+    z = mu + eps * exp(logvar / 2), eval mode z = mu.
     """
 
     def __init__(self, ngf: int = 64, norm_type: str = "syncbatch",
@@ -259,13 +260,24 @@ class SPADEGenerator(nn.Module):
             final_nc = nf // 2
         self.sphere_conv1 = SphereConv2D(final_nc, 3, **kw)
 
-    def forward(self, guide: torch.Tensor, crop: torch.Tensor) -> torch.Tensor:
-        if self.training and self.use_vae:
-            raise NotImplementedError("use_vae training is not ported; call .eval()")
+    def forward(self, guide: torch.Tensor, crop: torch.Tensor, eps: torch.Tensor | None = None,
+                want_vae: bool = False):
+        """The env map; with want_vae (a use_vae model) also the encoder's
+        (mu, logvar), for the KLD term. eps: the train-mode latent noise,
+        (B, 32 * ngf) N(0, 1), drawn from torch's global generator when None
+        (the training steps pass a seeded draw)."""
         nf = self.ngf
-        z = self.netE(crop)
         if self.use_vae:
-            z = z[0]  # eval uses mu
+            mu, logvar = self.netE(crop)
+            if self.training:
+                std = torch.exp(0.5 * logvar)
+                z = mu + (torch.randn_like(std) if eps is None else eps) * std
+            else:
+                z = mu
+        elif want_vae:
+            raise ValueError("want_vae needs a use_vae generator")
+        else:
+            z = self.netE(crop)
         # torch's z.view(-1, 16nf, 1, 2) element order, then NHWC
         x = z.reshape(-1, 16 * nf, 1, 2).permute(0, 2, 3, 1)
         x = resize_nearest(x, (self.sh, self.sw)).contiguous()
@@ -289,4 +301,5 @@ class SPADEGenerator(nn.Module):
             x = up(x)
             x = self.up_4(x, guide)
         x = self.sphere_conv1(_lrelu(x))
-        return (torch.tanh(x) + 1.0) * 25.0
+        out = (torch.tanh(x) + 1.0) * 25.0
+        return (out, (mu, logvar)) if want_vae else out

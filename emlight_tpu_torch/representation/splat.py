@@ -27,7 +27,17 @@ DEFAULT_SPLAT_SIZE = 0.0025
 @functools.lru_cache(maxsize=None)
 def _grid(h: int, w: int, device: str, dtype: torch.dtype) -> torch.Tensor:
     grid = equirect_xyz_splat(h, w).reshape(-1, 3).T  # (3, P)
-    return torch.tensor(grid, dtype=dtype, device=device)
+    with torch.inference_mode(False):
+        return torch.tensor(grid, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _anchors(n: int, device: str, dtype: torch.dtype) -> torch.Tensor:
+    """The n anchor directions on `device` once: a copy from pageable host
+    memory in every call would make the host wait for the card. Made
+    outside inference mode, as ``_grid``, for the training steps too."""
+    with torch.inference_mode(False):
+        return torch.tensor(sphere_points(n), dtype=dtype, device=device)
 
 
 def render_sg(dirs: torch.Tensor, sizes: torch.Tensor, colors: torch.Tensor,
@@ -62,8 +72,7 @@ def render_anchor_params(distribution: torch.Tensor, intensity: torch.Tensor,
     """
     b = distribution.shape[0]
     dt, dev = distribution.dtype, distribution.device
-    anchors = torch.tensor(sphere_points(n), dtype=dt, device=dev)
-    dirs = anchors[None].expand(b, n, 3)
+    dirs = _anchors(n, str(dev), dt)[None].expand(b, n, 3)
     sizes = torch.full((b, n), size, dtype=dt, device=dev)
     colors = (distribution[:, :, None] * intensity.reshape(b, 1, 1) * intensity_scale
               * rgb_ratio.reshape(b, 1, 3))

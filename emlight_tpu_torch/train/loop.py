@@ -70,7 +70,9 @@ class IterationTimer:
     synchronizes it before it reads the clock: a step only enqueues its
     kernels, and without the synchronization the timer would measure the
     launches. There it also keeps each step's device time (CUDA events
-    around the step) in ``device_ms``.
+    around the step) in ``device_ms``. ``with timer(n):`` times n
+    iterations that run as one block (--scan_steps): each is accounted the
+    block's time / n, as the JAX timer's ``add``.
     """
 
     def __init__(self, out_dir: str, batch_size: int = 1, device=None):
@@ -83,6 +85,7 @@ class IterationTimer:
         self._times: list[float] = []
         self._t0: float | None = None
         self._events = None
+        self._n = 1
 
     def resume(self) -> "IterationTimer":
         if os.path.exists(self.path):
@@ -97,6 +100,10 @@ class IterationTimer:
         with open(self.path, "w") as f:
             json.dump({"epoch": self.epoch, "step": self.step}, f)
 
+    def __call__(self, n: int) -> "IterationTimer":
+        self._n = n
+        return self
+
     def __enter__(self):
         self._t0 = time.perf_counter()
         if self.sync:
@@ -105,12 +112,13 @@ class IterationTimer:
         return self
 
     def __exit__(self, *exc):
+        n, self._n = self._n, 1
         if self.sync:  # the step's end on the device, not its last launch
             self._events[1].record()
             torch.cuda.synchronize()
-            self.device_ms.append(self._events[0].elapsed_time(self._events[1]))
-        self._times.append(time.perf_counter() - self._t0)
-        self.step += 1
+            self.device_ms.extend([self._events[0].elapsed_time(self._events[1]) / n] * n)
+        self._times.extend([(time.perf_counter() - self._t0) / n] * n)
+        self.step += n
         if len(self._times) > 200:
             self._times = self._times[-200:]
 

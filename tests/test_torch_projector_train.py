@@ -31,7 +31,7 @@ from emlight_tpu_torch.train.jax_weights import (
     generator_state_from_jax,
 )
 from emlight_tpu_torch.train.optim import clip_by_global_norm
-from torch_port_helpers import port_projector_cfg
+from torch_port_helpers import capture_tx, port_projector_cfg
 
 TINY = dataclasses.replace(
     ProjectorConfig(), crop_size=64, ngf=8, ndf=8, batch_size=2,
@@ -53,14 +53,6 @@ GRAD_REL = 2e-4
 GRAD_FLOOR = 1e-3
 
 
-def _capture():
-    """Zero update; the optimizer state is the gradient of the last step."""
-    return optax.GradientTransformation(
-        init=lambda p: jax.tree.map(jnp.zeros_like, p),
-        update=lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g),
-    )
-
-
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -69,7 +61,7 @@ def _np(tree):
 def run():
     """Both sides' G step and D step; returns what the tests compare."""
     batch = j_batch(2, n_anchors=96, crop_size=32, env_hw=(32, 64), seed=1)
-    tx = _capture()
+    tx = capture_tx()
     s0 = P.create_state(jax.random.PRNGKey(0), TINY)
     s0 = s0.replace(tx_g=tx, tx_d=tx, g_opt=tx.init(s0.g_params), d_opt=tx.init(s0.d_params))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -193,8 +185,10 @@ def test_create_state_ttur_adam():
     assert g_group["eps"] == d_group["eps"] == 1e-8
     assert state.g.training and state.d.training
     assert (state.step, state.d_step) == (0, 0)
-    with pytest.raises(NotImplementedError, match="use_vae"):
-        TP.create_state(dataclasses.replace(cfg, use_vae=True), device="cpu")
+    # use_vae: the encoder's fc_mu and fc_var heads in place of fc
+    vae = {k for k, _ in TP.create_state(dataclasses.replace(cfg, use_vae=True),
+                                         device="cpu").g.named_parameters()}
+    assert {"netE.fc_mu.weight", "netE.fc_var.weight"} <= vae and "netE.fc.weight" not in vae
 
 
 @pytest.mark.parametrize("max_norm", [0.5, 100.0])

@@ -6,6 +6,7 @@ the JAX kernel's side of its pixel gate."""
 
 import dataclasses
 
+import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +20,11 @@ from emlight_tpu_torch.nn import layers as tlayers
 from emlight_tpu_torch.representation.splat import render_anchor_params as t_render
 from emlight_tpu_torch.train import projector as TP
 from emlight_tpu_torch.train.jax_weights import generator_state_from_jax
-from torch_port_helpers import jax_generator_variables, port_projector_cfg
+from torch_port_helpers import (  # noqa: F401 (the fixture: autouse)
+    jax_generator_variables,
+    no_persistent_cache_writes,
+    port_projector_cfg,
+)
 
 CROP = 64
 N_ANCHORS = 16
@@ -115,11 +120,61 @@ def test_generator_requires_cuda_unless_cpu_is_asked(monkeypatch):
         TP.make_models(tcfg.ProjectorConfig(ngf=4, crop_size=64))
 
 
+class _VaeDraw(fnn.Module):
+    """The JAX generator's latent draw: make_rng("vae") once at the root
+    scope."""
+
+    @fnn.compact
+    def __call__(self, shape):
+        return jax.random.normal(self.make_rng("vae"), shape)
+
+
 def test_generator_is_eval_only():
-    """A use_vae generator runs in eval only: its training (the
-    reparameterized latent) is not ported. Train mode without use_vae is
-    tests/test_torch_projector_train.py's."""
-    g = TP.make_models(port_projector_cfg(jax_cfg(True)), device="cpu").train()
-    guide, crop = _guide_and_crop(1)
-    with pytest.raises(NotImplementedError, match="eval"):
-        g(torch.from_numpy(guide), torch.from_numpy(crop))
+    """A use_vae generator: eval takes z = mu; train mode the reparameterized
+    z = mu + eps * exp(logvar / 2), as the JAX generator does with the same
+    eps (its draw at the root scope, recovered with the same key), and
+    hands (mu, logvar) back for the KLD term. (Until use_vae training was
+    ported, train mode raised.)"""
+    g_apply, variables, g = generator_pair(True)
+    variables = {k: v for k, v in variables.items() if k != "vae_stats"}
+    guide, crop = _guide_and_crop(2)
+    key = jax.random.PRNGKey(7)
+
+    def train_apply(v, a, c):
+        out, mut = g_apply(v, a, c, train=True, rngs={"vae": key},
+                           mutable=["batch_stats", "spectral", "vae_stats"])
+        return out, mut["vae_stats"]["mu"][0], mut["vae_stats"]["logvar"][0]
+
+    ref, mu, logvar = jax.jit(train_apply)(variables, guide, crop)
+    # the same draw: one make_rng("vae") at the root scope with the same key
+    eps = np.asarray(_VaeDraw().apply({}, (2, 32 * g.ngf), rngs={"vae": key}))
+    out, (t_mu, t_logvar) = g.train()(torch.from_numpy(guide), torch.from_numpy(crop),
+                                      eps=torch.tensor(eps), want_vae=True)
+    np.testing.assert_allclose(t_mu.detach().numpy(), np.asarray(mu), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(t_logvar.detach().numpy(), np.asarray(logvar), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=1e-4, atol=5e-4)
+    with torch.no_grad():  # eval: z = mu, whatever eps is given
+        g.eval()
+        a = g(torch.from_numpy(guide), torch.from_numpy(crop))
+        b = g(torch.from_numpy(guide), torch.from_numpy(crop), eps=torch.tensor(eps))
+    assert torch.equal(a, b)
+
+
+def test_tables_made_while_serving_serve_a_training_step():
+    """The resize and splat tables go onto the device once per size; one
+    first made under inference_mode (serving) must still be saved for a
+    training step's backward (an inference tensor cannot be)."""
+    from emlight_tpu_torch.representation import splat as tsplat
+    from emlight_tpu_torch.train.data import synthetic_projector_batch
+
+    for cached in (tlayers._nearest_index, tlayers._axis_weights, tsplat._anchors,
+                   tsplat._grid):
+        cached.cache_clear()
+    cfg = port_projector_cfg(jax_cfg(False))
+    batch = synthetic_projector_batch(2, n_anchors=N_ANCHORS, crop_size=CROP // 2,
+                                      env_hw=(CROP // 2, CROP), seed=2)
+    TP.inference(TP.make_models(cfg, device="cpu"),
+                 {k: torch.from_numpy(v) for k, v in batch.items()}, cfg)
+    losses, fake = TP.generator_step(TP.create_state(cfg, device="cpu"), batch)
+    assert torch.isfinite(losses["loss_G"]) and fake.shape == (2, CROP // 2, CROP, 3)

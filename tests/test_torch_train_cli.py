@@ -345,14 +345,9 @@ def test_eval_metrics_matches_jax(run):
     _stats_close(got, ref, "angular_err_deg", rtol=0, atol=1e-2)
 
 
-GAN = "The rest of GAN training"
 UNPORTED = [
     ("train_regression", ["--parallel"], "Multi-GPU"),
     ("train_projector", ["--parallel"], "Multi-GPU"),
-    ("train_projector", ["--fused"], GAN),
-    ("train_projector", ["--scan_steps", "4"], GAN),
-    ("train_projector", ["--vgg_random"], GAN),
-    ("train_projector", ["--vgg_npz", "FILE"], GAN),
     ("test_projector", ["--parallel"], "Multi-GPU"),
 ]
 MAINS = {"train_regression": ttrain_regression.main, "train_projector": ttrain_projector.main,
@@ -365,9 +360,6 @@ MAINS = {"train_regression": ttrain_regression.main, "train_projector": ttrain_p
 def test_unported_flags_exit_with_their_roadmap_item(tmp_path, capsys, cli, flags, item):
     """Each exits at parse time (argparse's code 2) naming its ROADMAP.md
     item by title, before anything is written."""
-    npz = tmp_path / "vgg19.npz"
-    np.savez(npz, conv0_kernel=np.zeros(1))
-    flags = [str(npz) if f == "FILE" else f for f in flags]
     need = (["--ckpt", "x.msgpack", "--data_root", str(tmp_path)]
             if cli in ("test_projector", "eval_metrics") else
             ["--synthetic", "4", "--out_dir", str(tmp_path / "run")])

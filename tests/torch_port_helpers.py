@@ -1,5 +1,6 @@
 """Shared helpers of the tests/test_torch_*.py files: JAX-initialised weights
-as NumPy trees, JAX train states to checkpoint, the port's config for a JAX
+as NumPy trees, JAX train states to checkpoint, an optax transformation
+that captures the JAX steps' gradients, the port's config for a JAX
 config, a fixture that runs a
 module's torch work on one thread, the NumPy emulation of the tensor-core
 kernels' f32 products (3xTF32), and of B6's and B5's U GEMM and gather."""
@@ -53,6 +54,25 @@ def jax_generator_variables(cfg, seed: int):
     params = gv.pop("params")
     gv["batch_stats"] = randomize_stats(gv["batch_stats"], np.random.default_rng(seed))
     return g.apply, params, gv
+
+
+def jax_projector_state(cfg, seed: int = 0):
+    """P.create_state(PRNGKey(seed), cfg) with its inits jitted at XLA
+    opt level 0 (eagerly they take about 30 s at the TINY config)."""
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(R, "run_init", lambda init_fn, *args: jit0(init_fn)(*args))
+        return P.create_state(jax.random.PRNGKey(seed), cfg)
+
+
+def capture_tx():
+    """An optax transformation whose update is zero and whose state is the
+    gradient of the last step: the JAX steps' gradients, read exactly."""
+    import optax
+
+    return optax.GradientTransformation(
+        init=lambda p: jax.tree.map(jnp.zeros_like, p),
+        update=lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g),
+    )
 
 
 def jax_states(reg_cfg, proj_cfg):
