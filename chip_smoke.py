@@ -13,8 +13,10 @@ cli.test_regression: EXR crops and JAX-layout checkpoints in, maps,
 previews and pickles out), trains and evaluates from files through the
 training CLIs (cli.train_regression, cli.train_projector with --resume,
 cli.test_projector, cli.eval_projector, cli.eval_metrics), extracts anchor
-GT from panorama files (cli.extract_distribution), and holds every
-hand-written kernel against its plain PyTorch version. The regressor runs
+GT from panorama files (cli.extract_distribution), runs training and
+serving data-parallel (--parallel: one rank at world size 1 on NCCL, two
+ranks on the card over gloo), and holds every hand-written kernel against
+its plain PyTorch version. The regressor runs
 as the JAX package runs it by default: the concat-free buffer forwards
 (nn/densenet_fast.py) in serving and training. Phases, each of which raises
 on failure:
@@ -117,6 +119,19 @@ on failure:
             panoramas/s, host load_batch ms per batch, the card's extraction
             ms per batch; pickles against extract_anchors on the CPU; the
             anchor sums as index_add_ beside the one-hot matmul
+16b. dist   data-parallel training and serving (dist/, --parallel): (a)
+            train_regression, train_projector --fused --vgg_random, infer
+            and test_projector with --parallel at world size 1 on NCCL,
+            each byte for byte with its serial run (cuDNN deterministic);
+            (b) two ranks spawned on this card over gloo with CUDA tensors:
+            the regression step at global batch 16 (buffer and standard
+            forwards) and the G, D and fused steps with VGG at global
+            batch 8, every rank's launches asserted per step, the averaged
+            gradients equal on both ranks and within phase 9's bar of one
+            device on the global batch; step times, which are no scaling
+            figures (gloo through the host, one shared card); (c) the same
+            over NCCL across cards where there are two or more, else
+            logged as skipped
 17. kernels one JSON line with every ported kernel, each with its bound on
             the CUDA cores (bound_ms) and on the tensor cores (tc_bound_ms)
             and its launches in phase 15 (tcli_launches; B7's in serving,
@@ -1665,7 +1680,10 @@ def run_cli(torch, np, dev, seed: int, regressor, generator, reg_cfg, proj_cfg, 
         f"pickles vs infer's max|diff| {pred_err:.3e} (rtol 1e-5, atol 1e-6); {2 * CLI_CROPS} "
         f"PNGs decode to their uint8 arrays; the timed set's {n} maps finite; phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
-    shutil.rmtree(work, ignore_errors=True)
+    # phase 16b serves these files again with --parallel, then removes them
+    out["files"] = {"work": work, "reg_ckpt": reg_ckpt, "proj_ckpt": proj_ckpt,
+                    "reg_run": os.path.join(work, "reg_run"),
+                    "proj_run": os.path.join(work, "proj_run"), "crop_dir": crop_dir}
     return out
 
 
@@ -1990,7 +2008,10 @@ def run_train_cli(torch, np, dev, seed: int, tables: dict, smi) -> dict:
         f"bit for bit; eval JSON lines finite: eval_projector env_rmse mean "
         f"{ep['env_rmse']['mean']:.4f}, eval_metrics env_rmse mean "
         f"{em['env_rmse']['mean']:.4f}; phase took {time.perf_counter() - t_phase:.1f} s")
-    shutil.rmtree(work, ignore_errors=True)
+    # phase 16b trains and serves from these roots again with --parallel, then
+    # removes them
+    out["files"] = {"work": work, "reg_root": reg_root, "proj_root": proj_root,
+                    "proj_run": proj_run, "proj_ckpt": proj_ckpt}
     return out
 
 
@@ -2092,6 +2113,350 @@ def run_extract(torch, np, dev, seed: int, smi) -> dict:
         f"(rtol 1e-5); dataset written in {write_s:.1f} s; phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
     shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+DIST_REG_BATCH, DIST_GAN_BATCH = 16, 8  # phase 16b (b)'s global batches, split over 2 ranks
+DIST_TIMEOUT_S = 300  # phase 16b: each rank's collectives, and the parent's wait for them
+
+
+def _dist_rank(index: int, work: str, n: int, backend: str, seed: int) -> None:
+    """Phase 16b (b)/(c): one rank of `n`, spawned. Joins a `backend` group
+    whose FileStore is in `work`; with gloo every rank shares card 0, with
+    NCCL rank r takes card r. At full width: one regression train_step of
+    the global batch DIST_REG_BATCH on each train_forward route, then a G,
+    a D and a fused step with VGG of DIST_GAN_BATCH (Adam at lr 0, so
+    every step starts from the seeded weights, as the parent's reference),
+    each step's kernel launches read around it and held to the
+    single-device step's; two more of each step timed. Saves the averaged
+    gradients, the metrics, the launches and the times in work/rank{index}.pt."""
+    sys.path.insert(0, HERE)
+    os.environ.update(RANK=str(index), WORLD_SIZE=str(n), LOCAL_RANK=str(index))
+    import numpy as np
+    import torch
+
+    from emlight_tpu_torch.dist import mesh
+    from emlight_tpu_torch.dist.parallel import (make_parallel_fused_step,
+                                                 make_parallel_projector_steps,
+                                                 make_parallel_regression_step)
+    from emlight_tpu_torch.nn import dense_conv_kernel as DK
+    from emlight_tpu_torch.nn import sphere_conv_kernel as SK
+    from emlight_tpu_torch.nn.vgg import VGG19Features, random_vgg19_params
+    from emlight_tpu_torch.train import projector as PJ
+    from emlight_tpu_torch.train import regression as RG
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", index if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    group, created = mesh.join(dev, "file://" + os.path.join(work, "store"),
+                               timeout_s=DIST_TIMEOUT_S, backend=backend)
+    wrappers = {**{k: getattr(DK, k) for k in EXPECTED_REG_STEP},
+                **{k: getattr(SK, k) for k in EXPECTED_G_STEP}}
+    out = {"launches": {}, "ms": {}, "grads": {}, "metrics": {}}
+    timed = []
+
+    def step(name, fn, expected, grads_of):
+        """fn() once with the launches read around it; timed later."""
+        torch.cuda.synchronize()
+        for w_ in wrappers.values():
+            w_.launches = 0
+        metrics = fn()
+        torch.cuda.synchronize()
+        got = {k: wrappers[k].launches for k in expected}
+        if got != expected:
+            raise AssertionError(f"rank {index}: {name} launches {got}, expected {expected}")
+        out["launches"][name] = got
+        out["metrics"][name] = {k: v.item() for k, v in metrics.items()}
+        out["grads"][name] = {f"{net}.{k}": p.grad.detach().cpu().clone()
+                              for net, mod in grads_of for k, p in mod.named_parameters()}
+        timed.append((name, fn))
+
+    def on_card(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in mesh.shard_batch(batch,
+                                                                               group).items()}
+
+    states = {}
+    for route in ("buffer", "standard"):
+        cfg = dist_reg_cfg(route)
+        states[route] = state = RG.create_state(cfg, device=dev, seed=seed + 130, group=group)
+        run, batch = make_parallel_regression_step(group), on_card(dist_reg_batch(np, cfg, seed))
+        step(f"regression {route}", lambda st=state, b=batch: run(st, b), EXPECTED_REG_STEP,
+             [("regressor", state.model)])
+    cfg = dist_gan_cfg()
+    state = PJ.create_state(cfg, device=dev, seed=seed + 140, group=group)
+    vgg = VGG19Features(random_vgg19_params(0), device=dev)
+    batch = on_card(dist_gan_batch(np, cfg, seed))
+    g_step, d_step = make_parallel_projector_steps(group, vgg)
+    fused = make_parallel_fused_step(group, vgg)
+    step("G step", lambda: g_step(state, batch)[0], EXPECTED_G_STEP, [("G", state.g)])
+    step("D step", lambda: d_step(state, batch), EXPECTED_D_STEP, [("D", state.d)])
+    step("fused step", lambda: fused(state, batch)[0], EXPECTED_FUSED_STEP,
+         [("G", state.g), ("D", state.d)])
+    # the times, once every step was recorded (a timed step moves u, v and
+    # the running statistics); Adam at lr 0 keeps the weights
+    for name, fn in timed:
+        out["ms"][name] = cuda_ms(torch, fn, warmup=1, iters=3)
+    mesh.barrier(group)
+    mesh.leave(created)
+    torch.save(out, os.path.join(work, f"rank{index}.pt"))
+
+
+def dist_reg_cfg(route: str):
+    """Phase 16b's regressor: RegressionConfig() on a train_forward route,
+    Adam at lr 0."""
+    from emlight_tpu_torch.config import RegressionConfig
+
+    return dataclasses.replace(RegressionConfig(), train_forward=route, lr=0.0)
+
+
+def dist_gan_cfg():
+    """Phase 16b's GAN: ProjectorConfig() at batch DIST_GAN_BATCH, Adam at
+    lr 0."""
+    from emlight_tpu_torch.config import ProjectorConfig
+
+    return dataclasses.replace(ProjectorConfig(), batch_size=DIST_GAN_BATCH, lr=0.0)
+
+
+def dist_reg_batch(np, cfg, seed: int, jitter: bool = False) -> dict:
+    """Phase 16b's regression batch (global), its crop jittered by JITTER
+    relative if asked."""
+    from emlight_tpu_torch.train.data import synthetic_regression_batch
+
+    b = synthetic_regression_batch(DIST_REG_BATCH, cfg.anchors.regression_anchors,
+                                   (cfg.crop_h, cfg.crop_w), seed=seed + 131)
+    if jitter:
+        rng = np.random.default_rng(seed + 132)
+        b["crop"] = (b["crop"] * (1 + JITTER * rng.standard_normal(b["crop"].shape))
+                     ).astype(np.float32)
+    return b
+
+
+def dist_gan_batch(np, cfg, seed: int, jitter: bool = False) -> dict:
+    """Phase 16b's GAN batch (global), crop and target jittered by JITTER
+    relative if asked."""
+    from emlight_tpu_torch.train.data import synthetic_projector_batch
+
+    b = synthetic_projector_batch(DIST_GAN_BATCH, n_anchors=cfg.anchors.n_anchors,
+                                  crop_size=cfg.crop_size // 2,
+                                  env_hw=(cfg.crop_size // 2, cfg.crop_size), seed=seed + 141)
+    if jitter:
+        rng = np.random.default_rng(seed + 142)
+        b = {k: (v * (1 + JITTER * rng.standard_normal(v.shape))).astype(np.float32)
+             if k in ("crop", "warped") else v for k, v in b.items()}
+    return b
+
+
+def spawn_ranks(torch, work: str, n: int, backend: str, seed: int) -> list:
+    """Start `n` ranks of _dist_rank, join them with a deadline (killing
+    them all when it passes), raise unless each exited 0; their results."""
+    ctx = torch.multiprocessing.start_processes(_dist_rank, args=(work, n, backend, seed),
+                                                nprocs=n, join=False, start_method="spawn")
+    end = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, end - time.monotonic())):
+            if time.monotonic() > end:
+                raise AssertionError(f"{n} ranks ({backend}) passed their {DIST_TIMEOUT_S} s "
+                                     "deadline")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [torch.load(os.path.join(work, f"rank{r}.pt")) for r in range(n)]
+
+
+def dist_references(torch, np, dev, seed: int) -> dict:
+    """Phase 16b's single-device steps on the global batches, from the
+    ranks' seeded states (Adam at lr 0), and again on the jittered batches:
+    {(run, step): (metrics, grads)} with run "single" or "jittered"."""
+    from emlight_tpu_torch.nn.vgg import VGG19Features, random_vgg19_params
+    from emlight_tpu_torch.train import projector as PJ
+    from emlight_tpu_torch.train import regression as RG
+
+    out = {}
+    for run, jitter in (("single", False), ("jittered", True)):
+        for route in ("buffer", "standard"):
+            cfg = dist_reg_cfg(route)
+            state = RG.create_state(cfg, device=dev, seed=seed + 130)
+            m = RG.train_step(state, dist_reg_batch(np, cfg, seed, jitter))
+            out[run, f"regression {route}"] = (
+                {k: v.item() for k, v in m.items()},
+                {f"regressor.{k}": p.grad.cpu() for k, p in state.model.named_parameters()})
+            del state
+        cfg = dist_gan_cfg()
+        state = PJ.create_state(cfg, device=dev, seed=seed + 140)
+        vgg = VGG19Features(random_vgg19_params(0), device=dev)
+        batch = dist_gan_batch(np, cfg, seed, jitter)
+        grads = lambda *nets: {f"{name}.{k}": p.grad.cpu() for name, mod in nets  # noqa: E731
+                               for k, p in mod.named_parameters()}
+        m, _ = PJ.generator_step(state, batch, vgg)
+        out[run, "G step"] = ({k: v.item() for k, v in m.items()}, grads(("G", state.g)))
+        m = PJ.discriminator_step(state, batch)
+        out[run, "D step"] = ({k: v.item() for k, v in m.items()}, grads(("D", state.d)))
+        m, _ = PJ.fused_gan_step(state, batch, vgg)
+        out[run, "fused step"] = ({k: v.item() for k, v in m.items()},
+                                  grads(("G", state.g), ("D", state.d)))
+        del state, vgg
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_ranks_to_single(torch, ranks: list, ref: dict, where: str) -> list:
+    """Every rank's averaged gradients equal on all ranks bit for bit; the
+    metrics within 1e-4 relative of the single-device step's and every
+    gradient leaf within the larger of GRAD_REL and GRAD_SPREAD times the
+    single device's own spread under JITTER (phase 9's bar). Returns one
+    summary per step."""
+    summary = []
+    for name in ranks[0]["grads"]:
+        for r in ranks[1:]:
+            for k, g in ranks[0]["grads"][name].items():
+                if not torch.equal(g, r["grads"][name][k]):
+                    raise AssertionError(f"{where} {name}: ranks hold different gradients at {k}")
+        metrics, grads = ref["single", name]
+        err = max(abs(v - metrics[k]) / max(abs(metrics[k]), 1e-6)
+                  for k, v in ranks[0]["metrics"][name].items())
+        if err > 1e-4:
+            raise AssertionError(f"{where} {name}: metrics {ranks[0]['metrics'][name]} against "
+                                 f"one device's {metrics}")
+        spread = grad_ratios(ref["jittered", name][1], grads)
+        got = grad_ratios(ranks[0]["grads"][name], grads)
+        bar = max(GRAD_REL, GRAD_SPREAD * spread[-1][0])
+        bad = [g for g in got if g[0] > bar]
+        if bad:
+            raise AssertionError(f"{where} {name}: {len(bad)} of {len(got)} gradient leaves above "
+                                 f"{bar:.3e} of their scale; worst {bad[-3:]}")
+        summary.append(f"{name}: metrics within {err:.2e}, worst leaf {got[-1][0]:.3e} "
+                       f"({got[-1][1]}), spread {spread[-1][0]:.3e}, bar {bar:.3e}, launches "
+                       f"{ranks[0]['launches'][name]} on each rank, "
+                       + "/".join(f"{r['ms'][name]:.3f}" for r in ranks) + " ms by rank")
+    return summary
+
+
+def _file_digest(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def run_dist(torch, np, dev, seed: int, smi, cli_files: dict, tcli_files: dict) -> dict:
+    """Phase 16b: data-parallel training and serving (dist/, --parallel).
+
+    (a) --parallel at world size 1 on NCCL, each run against the same run
+    without it, under cuDNN's deterministic algorithms: train_regression
+    (2 epochs of the phase 15 root at batch 16), train_projector --fused
+    --vgg_random (1 epoch at batch 8), infer (phase 14's 17 crops at batch
+    8) and test_projector (phase 15's root and checkpoint); checkpoints,
+    maps and pickles equal byte for byte, metrics.csv equal but for its
+    timing columns. (b) two ranks on this card over gloo with CUDA tensors,
+    spawned (_dist_rank): the regression step at global batch 16 on both
+    routes and the G, D and fused steps with VGG at global batch 8, against
+    one device on the global batch at phase 9's bar, the launches of every
+    step asserted on each rank; step times logged, which are no scaling
+    figures (gloo stages each all-reduce through the host, and the ranks
+    share the card). (c) the same over NCCL, one rank per card, where
+    there are two cards or more. Removes phases 14 and 15's files."""
+    import csv
+    import shutil
+    import tempfile
+
+    from emlight_tpu_torch.cli import infer as cli_infer
+    from emlight_tpu_torch.cli import test_projector as cli_test_projector
+    from emlight_tpu_torch.cli import train_projector as cli_train_projector
+    from emlight_tpu_torch.cli import train_regression as cli_train_regression
+
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, "build", "dist_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out: dict = {}
+
+    # (a) --parallel at world size 1 on NCCL against the serial run, bit for bit
+    torch.backends.cudnn.deterministic = True
+    timing = {"time_per_iter", "time_per_item", "iter_p50_s", "iter_p90_s"}
+    runs = {
+        "train_regression": (cli_train_regression.main, [
+            "--data_root", tcli_files["reg_root"], "--epochs", "2", "--batch_size", "16"],
+            ["checkpoints/latest.msgpack", "iter.json"]),
+        "train_projector --fused": (cli_train_projector.main, [
+            "--data_root", tcli_files["proj_root"], "--epochs", "1", "--batch_size",
+            str(TCLI_PROJ_BATCH), "--fused", "--vgg_random"],
+            ["checkpoints/latest.msgpack", "iter.json"]),
+        "infer": (cli_infer.main, [
+            "--reg_ckpt", cli_files["reg_ckpt"], "--proj_ckpt", cli_files["proj_ckpt"],
+            "--reg_config", cli_files["reg_run"], "--proj_config", cli_files["proj_run"],
+            "--crops", cli_files["crop_dir"], "--batch", str(BATCH), "--save_pickles"], None),
+        "test_projector": (cli_test_projector.main, [
+            "--ckpt", tcli_files["proj_ckpt"], "--data_root", tcli_files["proj_root"],
+            "--load_config", tcli_files["proj_run"]], None),
+    }
+    ws1 = []
+    for name, (main_fn, argv, files) in runs.items():
+        dirs = {who: os.path.join(work, name.replace(" --", "_") + "_" + who)
+                for who in ("serial", "parallel")}
+        t0 = time.perf_counter()
+        for who, extra in (("serial", []), ("parallel", ["--parallel"])):
+            main_fn(argv + ["--out_dir", dirs[who]] + extra)
+            torch.cuda.synchronize()
+        if files is None:  # serving: every file the serial run wrote
+            files = sorted(os.listdir(dirs["serial"]))
+            if sorted(os.listdir(dirs["parallel"])) != files:
+                raise AssertionError(f"{name} --parallel wrote other files than the serial run")
+        else:
+            rows = []
+            for who in ("serial", "parallel"):
+                with open(os.path.join(dirs[who], "metrics.csv")) as f:
+                    rows.append([{k: v for k, v in r.items() if k not in timing}
+                                 for r in csv.DictReader(f)])
+            if rows[0] != rows[1] or not rows[0]:
+                raise AssertionError(f"{name} --parallel: metrics.csv differs from the serial "
+                                     f"run's: {rows[0][:1]} against {rows[1][:1]}")
+        for f in files:
+            a, b = (_file_digest(os.path.join(dirs[who], f)) for who in ("serial", "parallel"))
+            if a != b:
+                raise AssertionError(f"{name} --parallel: {f} differs from the serial run's")
+        ws1.append(f"{name}: {len(files)} files equal byte for byte "
+                   f"({time.perf_counter() - t0:.1f} s for both runs)")
+    torch.backends.cudnn.deterministic = False
+    for files in (cli_files, tcli_files):
+        shutil.rmtree(files["work"], ignore_errors=True)
+    log(f"[dist] (a) {smi}: --parallel at world size 1 (NCCL) against the serial runs, "
+        f"cuDNN deterministic: " + "; ".join(ws1))
+
+    # (b) two ranks sharing this card over gloo, CUDA tensors
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gloo = tempfile.mkdtemp(dir=work)
+    ranks = spawn_ranks(torch, gloo, 2, "gloo", seed)
+    ranks_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = True
+    ref = dist_references(torch, np, dev, seed)
+    torch.backends.cudnn.deterministic = False
+    summary = hold_ranks_to_single(torch, ranks, ref, "2 ranks, gloo")
+    out["gloo_ms"] = {name: [r["ms"][name] for r in ranks] for name in ranks[0]["ms"]}
+    log(f"[dist] (b) {smi}: 2 ranks on one card over gloo (CUDA tensors), regression at global "
+        f"batch {DIST_REG_BATCH} and G/D/fused with VGG at {DIST_GAN_BATCH}, against one device "
+        f"on the global batch (phase 9's bar; Adam at lr 0): " + "; ".join(summary)
+        + f"; ranks took {ranks_s:.1f} s. The step times are no scaling figures: gloo stages "
+        "every all-reduce through the host and the two ranks share one card")
+
+    # (c) NCCL across cards
+    if torch.cuda.device_count() >= 2:
+        nccl = tempfile.mkdtemp(dir=work)
+        ranks = spawn_ranks(torch, nccl, 2, "nccl", seed)
+        summary = hold_ranks_to_single(torch, ranks, ref, "2 ranks, NCCL")
+        out["nccl_ms"] = {name: [r["ms"][name] for r in ranks] for name in ranks[0]["ms"]}
+        log("[dist] (c) 2 ranks on 2 cards over NCCL: " + "; ".join(summary))
+    else:
+        log(f"[dist] (c) skipped: {torch.cuda.device_count()} card (NCCL across cards needs 2)")
+    shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dist] phase took {out['phase_s']:.1f} s")
     return out
 
 
@@ -2368,6 +2733,9 @@ def main(argv=None) -> int:
     tables["tcli"] = run_train_cli(torch, np, dev, args.seed, tables, smi)
     save()
     tables["extract"] = run_extract(torch, np, dev, args.seed, smi)
+    save()
+    tables["dist"] = run_dist(torch, np, dev, args.seed, smi, tables["cli"].pop("files"),
+                              tables["tcli"].pop("files"))
     save()
 
     # 17. kernels line

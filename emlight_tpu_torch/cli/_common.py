@@ -1,9 +1,18 @@
-"""What the port's CLIs share: the refusal of the flags whose features are
-not ported (each message names its ROADMAP.md §1 item by title), the device
-check, the regressor's and projector's configs, the regressor's restore
+"""What the port's CLIs share: the device check, the launch of --parallel's
+ranks, the regressor's and projector's configs, the regressor's restore
 (.msgpack or reference .pth, in the dtype of the run it came from), the
 crop list and the crop preprocessing, dataset items as a batch on the
-device, the eval CLIs' report and a training loop's data wait."""
+device, the eval CLIs' report and a training loop's data wait.
+
+--parallel (the five CLIs that have it: train_regression,
+train_projector, infer, test_regression, test_projector) runs one rank
+per card (``launch``): under torchrun (WORLD_SIZE set) or in a process
+group someone else started, each process is one rank of that group;
+otherwise the CLI spawns one rank per visible card
+(torch.multiprocessing), after building the kernels and the native
+library once, and with ``--device cpu`` it runs $EMLIGHT_CPU_RANKS gloo
+ranks (default one, in the process itself; more are spawned). NCCL joins
+the cards, gloo the CPU ranks (dist/mesh.py::join)."""
 
 from __future__ import annotations
 
@@ -11,26 +20,34 @@ import argparse
 import dataclasses
 import json
 import os
+import pickle
+import shutil
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import AnchorConfig, ProjectorConfig, RegressionConfig
 from ..core.device import resolve_device
 from ..core.hdr import TONEMAP_INPUT, resize_panorama
+from ..dist import mesh
 from ..train import regression as R
 from ..train.checkpoint import load_checked, restore_regressor
 from ..train.jax_weights import densenet_state_from_jax
 from ..train.torch_import import import_densenet_state_dict
 
-__all__ = ["PARALLEL_NOT_PORTED", "add_device_flag", "checked_device", "refuse",
-           "regression_config", "saved_dtype", "projector_config", "pooled_hw", "load_regressor",
-           "regressor_apply", "crop_names", "tonemapped_crop", "stacked", "summary_line",
-           "next_timed"]
+__all__ = ["CPU_RANKS_ENV", "PARALLEL_HELP", "add_device_flag", "checked_device", "rank_count",
+           "launch", "spawn_ranks", "regression_config", "saved_dtype", "projector_config",
+           "pooled_hw", "load_regressor", "regressor_apply", "crop_names", "tonemapped_crop",
+           "stacked", "summary_line", "next_timed"]
 
-PARALLEL_NOT_PORTED = ("--parallel (the batch sharded over several cards) is not ported yet "
-                       "(ROADMAP.md §1, \"Multi-GPU\"); run without it on one card")
+# how many gloo ranks --parallel spawns with --device cpu outside torchrun
+CPU_RANKS_ENV = "EMLIGHT_CPU_RANKS"
+PARALLEL_HELP = ("one rank per card: joins torchrun's group (or the process group already "
+                 "started), else spawns one rank per visible card; NCCL between cards; with "
+                 f"--device cpu gloo ranks, ${CPU_RANKS_ENV} of them (default 1)")
 
 
 def add_device_flag(ap: argparse.ArgumentParser) -> None:
@@ -41,21 +58,114 @@ def add_device_flag(ap: argparse.ArgumentParser) -> None:
 
 def checked_device(ap: argparse.ArgumentParser, argv):
     """First parse of the command line, before any file is read or written:
-    --parallel (where the CLI has it) exits with its message, and a CUDA
-    device that is not there raises."""
-    args = ap.parse_args(argv)
-    if getattr(args, "parallel", False):
-        ap.error(PARALLEL_NOT_PORTED)
-    return resolve_device(args.device)
+    a CUDA device that is not there raises."""
+    return resolve_device(ap.parse_args(argv).device)
 
 
-def refuse(ap: argparse.ArgumentParser, *checks: tuple[bool, str]) -> None:
-    """Exit (argparse's usage error, code 2) with the message of the first
-    check that is set: a flag whose feature is not ported is never
-    ignored."""
-    for bad, message in checks:
-        if bad:
-            ap.error(message)
+def _joining() -> bool:
+    return dist.is_initialized() or "WORLD_SIZE" in os.environ
+
+
+def rank_count(parallel: bool, device) -> int:
+    """How many ranks ``launch`` runs: 1 without --parallel; the group's
+    size when it joins one; the visible cards when it spawns on CUDA; on
+    the CPU, CPU_RANKS_ENV's count (1 when unset)."""
+    if not parallel:
+        return 1
+    if dist.is_initialized():
+        return dist.get_world_size()
+    if "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device_count()
+    return int(os.environ.get(CPU_RANKS_ENV, 1))
+
+
+def launch(main, argv, parallel: bool, device, body):
+    """Run ``body(device, group)``: with group None without --parallel;
+    as one rank of a group with it (``mesh.join``), on the rank's device.
+    Where no group is there to join and ``rank_count`` is above 1, the
+    ranks are spawned (``spawn_ranks``), each running ``main(argv)`` again
+    inside the group, and rank 0's result is returned; a rank that fails
+    makes this raise. A collective that waits longer than
+    mesh.DIST_TIMEOUT_S fails its rank."""
+    if not parallel:
+        return body(device, None)
+    joining = _joining()
+    n = rank_count(True, device)
+    if not joining and n > 1:
+        return spawn_ranks(main, argv, n, torch.device(device).type)
+    # a group to join, or without one a group of one of its own
+    store = None if joining else tempfile.mkdtemp(prefix="emlight_dist_")
+    group, created = mesh.join(device, store and "file://" + os.path.join(store, "init"))
+    try:
+        device = mesh.rank_device(device, group)
+        mesh.barrier(group)  # every rank has read its flags (and a run's opt.json)
+        return body(device, group)
+    finally:
+        mesh.leave(created)
+        if store:
+            shutil.rmtree(store, ignore_errors=True)
+
+
+def spawn_ranks(main, argv, n: int, device_type: str, timeout_s: float = mesh.DIST_TIMEOUT_S,
+                deadline_s: float | None = None):
+    """Run ``main(argv)`` on `n` spawned ranks of one group (a FileStore in
+    a temporary directory; NCCL on rank r's card r for "cuda", gloo for
+    "cpu"; `timeout_s` on every collective) and return rank 0's result.
+    For cards the kernels and the native library are built here first, so
+    the ranks do not each run nvcc. A rank that fails terminates the
+    others and raises here. The ranks of one run end together (at their
+    last collective), so once one has ended the others get `timeout_s`;
+    past that, or past `deadline_s` from the start when given, they are
+    killed and this raises."""
+    from .. import kernels, native
+
+    if device_type == "cuda":
+        kernels.build()
+    native.load()
+    store = tempfile.mkdtemp(prefix="emlight_dist_")
+    start, ctx = time.monotonic(), None
+    try:
+        ctx = torch.multiprocessing.start_processes(
+            _spawned_rank, args=(main, argv, n, store, device_type, timeout_s), nprocs=n,
+            join=False, start_method="spawn")
+        ended = None
+        while not ctx.join(timeout=1.0):  # raises when a rank failed
+            now = time.monotonic()
+            if ended is None and not all(p.is_alive() for p in ctx.processes):
+                ended = now
+            if ended is not None and now - ended > timeout_s:
+                raise RuntimeError(f"--parallel: a rank still ran {timeout_s} s after another "
+                                   "had ended; the ranks were killed")
+            if deadline_s is not None and now - start > deadline_s:
+                raise RuntimeError(f"--parallel: the ranks ran past {deadline_s} s and were "
+                                   "killed")
+        with open(os.path.join(store, "result.pickle"), "rb") as f:
+            return pickle.load(f)
+    finally:
+        for p in ctx.processes if ctx else []:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _spawned_rank(index: int, main, argv, n: int, store: str, device_type: str,
+                  timeout_s: float) -> None:
+    """A spawned rank: joins the group whose store is in `store` as rank
+    `index` of `n` (on card `index` for CUDA), runs ``main(argv)`` in it,
+    and rank 0 leaves its result there."""
+    os.environ.update(RANK=str(index), WORLD_SIZE=str(n), LOCAL_RANK=str(index))
+    _, created = mesh.join(torch.device(device_type), "file://" + os.path.join(store, "init"),
+                           timeout_s=timeout_s)
+    try:
+        out = main(argv)
+    finally:
+        mesh.leave(created)
+    if index == 0:
+        with open(os.path.join(store, "result.pickle"), "wb") as f:
+            pickle.dump(out, f)
 
 
 def regression_config(anchors: int, crop, block_config, clip_grad_norm: float,

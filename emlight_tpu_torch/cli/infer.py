@@ -22,6 +22,12 @@ The checkpoints are the JAX package's .msgpack train states (or, for the
 regressor, a reference .pth); their optimizer state is not read, so
 --reg_clip_grad_norm and --proj_clip_grad_norm change nothing and are
 accepted for command-line compatibility.
+
+--parallel serves over one rank per card (cli/_common.py::launch): each
+batch of --batch crops is padded to a multiple of the rank count by
+repeating its last crop, each rank reads and runs its rows of it
+(dist/parallel.py::serving_rows) and writes the files of its real crops.
+No collective runs.
 """
 
 from __future__ import annotations
@@ -39,11 +45,12 @@ from ..config import AnchorConfig, ProjectorConfig
 from ..core.exr import write_exr
 from ..core.hdr import TONEMAP_VIZ, read_hdr, resize_panorama
 from ..core.png import write_png
+from ..dist.parallel import serving_rows
 from ..train import projector as P
 from ..train.checkpoint import restore_generator
 from ..train.pipeline import pipeline_inference
-from ._common import (add_device_flag, checked_device, crop_names, load_regressor,
-                      regression_config, tonemapped_crop)
+from ._common import (PARALLEL_HELP, add_device_flag, checked_device, crop_names, launch,
+                      load_regressor, regression_config, tonemapped_crop)
 
 
 def _apply_snapshot_defaults(ap: argparse.ArgumentParser, argv):
@@ -90,7 +97,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--save_pickles", action="store_true",
                     help="also dump the intermediate predicted anchor pickles")
     ap.add_argument("--parallel", action="store_true",
-                    help="not ported yet (ROADMAP.md §1, \"Multi-GPU\"): exits")
+                    help="each batch's crops split over the ranks (a ragged one padded); "
+                         + PARALLEL_HELP)
     add_device_flag(ap)
     # regression stage shape (defaults overridden by --reg_config)
     ap.add_argument("--anchors", type=int, default=96)
@@ -112,11 +120,16 @@ def main(argv=None) -> dict:
     """Run the CLI; returns where the time went: crops, batches, host
     seconds of read, tonemap + resize (prep), pipeline and write, the wall
     seconds, and on the card each batch's device ms (CUDA events around
-    pipeline_inference)."""
+    pipeline_inference): rank 0's crops under --parallel."""
     ap = _parser()
     dev = checked_device(ap, argv)
     _apply_snapshot_defaults(ap, argv)
     args = ap.parse_args(argv)
+    return launch(main, argv, args.parallel, dev, lambda d, group: _serve(args, d, group))
+
+
+def _serve(args, dev, group) -> dict:
+    """The run on `dev`, as one rank of `group` under --parallel."""
     t_start = time.perf_counter()
 
     reg_cfg = regression_config(args.anchors, args.crop, args.block_config,
@@ -134,11 +147,14 @@ def main(argv=None) -> dict:
     crop_dir, names = crop_names(args.crops, args.data_root, args.limit)
     os.makedirs(args.out_dir, exist_ok=True)
     proj_in = args.crop_size // 2
-    stats = {"crops": len(names), "batches": 0, "read_s": 0.0, "prep_s": 0.0,
+    n_mine = sum(serving_rows(len(names[s : s + args.batch]), group)[1]
+                 for s in range(0, len(names), args.batch))
+    stats = {"crops": n_mine, "batches": 0, "read_s": 0.0, "prep_s": 0.0,
              "pipeline_s": 0.0, "write_s": 0.0, "device_ms": []}
     t_loop = time.perf_counter()
     for s in range(0, len(names), args.batch):
-        chunk = names[s : s + args.batch]
+        rows, n_real = serving_rows(len(names[s : s + args.batch]), group)
+        chunk = [names[s + i] for i in rows]
         regs, projs = [], []
         for nm in chunk:
             t0 = time.perf_counter()
@@ -163,7 +179,7 @@ def main(argv=None) -> dict:
             stats["device_ms"].append(start.elapsed_time(end))
         t1 = time.perf_counter()
         stats["pipeline_s"] += t1 - t0
-        for i, nm in enumerate(chunk):
+        for i, nm in enumerate(chunk[:n_real]):
             stem = nm[: -len(".exr")]
             write_exr(os.path.join(args.out_dir, f"{stem}.exr"), env[i])
             tone, _ = TONEMAP_VIZ(env[i])
@@ -179,7 +195,8 @@ def main(argv=None) -> dict:
                     pickle.dump(para, f, protocol=pickle.HIGHEST_PROTOCOL)
         stats["write_s"] += time.perf_counter() - t1
         stats["batches"] += 1
-        print(f"{min(s + args.batch, len(names))}/{len(names)}")
+        if group is None or group.rank == 0:
+            print(f"{min(s + args.batch, len(names))}/{len(names)}")
     stats["loop_s"] = time.perf_counter() - t_loop
     stats["wall_s"] = time.perf_counter() - t_start
     n = max(stats["crops"], 1)

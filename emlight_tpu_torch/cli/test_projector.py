@@ -11,7 +11,10 @@ array of TONEMAP_VIZ).
 The checkpoint is a .msgpack ProjectorState (the JAX package's or the
 port's); only the generator is read, so --ndf and --clip_grad_norm, which
 must match training for the JAX CLI's restore, change nothing here and are
-accepted for command-line compatibility.
+accepted for command-line compatibility. --parallel splits each batch
+over one rank per card (cli/_common.py::launch), a ragged batch padded by
+repeating its last sample; each rank reads its samples and writes their
+files (dist/parallel.py::serving_rows).
 
 Usage:
   python -m emlight_tpu_torch.cli.test_projector \
@@ -29,11 +32,13 @@ import numpy as np
 from ..core.exr import write_exr
 from ..core.hdr import TONEMAP_VIZ
 from ..core.png import write_png
+from ..dist.parallel import serving_rows
 from ..train import projector as P
 from ..train.checkpoint import restore_generator
 from ..train.config_io import apply_saved_defaults
 from ..train.data import ProjectorDataset
-from ._common import add_device_flag, checked_device, projector_config, stacked
+from ._common import (PARALLEL_HELP, add_device_flag, checked_device, launch,
+                      projector_config, stacked)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -51,7 +56,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="bfloat16: conv compute in bf16 (f32 accumulation)")
     ap.add_argument("--limit", type=int, default=0)
     ap.add_argument("--parallel", action="store_true",
-                    help="not ported yet (ROADMAP.md §1, \"Multi-GPU\"): exits")
+                    help="each batch split over the ranks (a ragged one padded); "
+                         + PARALLEL_HELP)
     ap.add_argument("--clip_grad_norm", type=float, default=0.0,
                     help="accepted, changes nothing: the optimizer state, whose "
                          "structure clipping changes, is not read")
@@ -67,7 +73,11 @@ def main(argv=None) -> None:
     dev = checked_device(ap, argv)
     apply_saved_defaults(ap, argv, exclude=("out_dir",))
     args = ap.parse_args(argv)
+    launch(main, argv, args.parallel, dev, lambda d, group: _serve(args, d, group))
 
+
+def _serve(args, dev, group) -> None:
+    """The run on `dev`, as one rank of `group` under --parallel."""
     cfg = projector_config(args)
     generator = restore_generator(args.ckpt, P.make_models(cfg, device=dev))
 
@@ -75,14 +85,16 @@ def main(argv=None) -> None:
     n = min(len(ds), args.limit) if args.limit else len(ds)
     os.makedirs(args.out_dir, exist_ok=True)
     for s in range(0, n, args.batch):
-        samples = [ds[i] for i in range(s, min(s + args.batch, n))]
+        rows, n_real = serving_rows(min(s + args.batch, n) - s, group)
+        samples = [ds[s + i] for i in rows]
         fake = P.inference(generator, stacked(samples, dev), cfg).float().cpu().numpy()
-        for i, smp in enumerate(samples):
+        for i, smp in enumerate(samples[:n_real]):
             nm = smp["name"]
             write_exr(os.path.join(args.out_dir, f"{nm}.exr"), fake[i])
             tone, _ = TONEMAP_VIZ(fake[i])
             write_png(os.path.join(args.out_dir, f"{nm}.png"), (tone * 255).astype(np.uint8))
-        print(f"{min(s + args.batch, n)}/{n}")
+        if group is None or group.rank == 0:
+            print(f"{min(s + args.batch, n)}/{n}")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ rgb_ratio, ambient} pickles to --out_dir, the format GenProjector's dataset
 consumes for end-to-end inference; --render adds an {name}_env.png preview.
 --eval_apply fast (the default, as in the JAX CLI) predicts through the
 concat-free buffer forward as a closure over the checkpoint; --load_config
-also supplies the training run's compute dtype.
+also supplies the training run's compute dtype. --parallel splits each
+batch over one rank per card (cli/_common.py::launch), a ragged batch
+padded by repeating its last crop; each rank reads its crops and writes
+their files (dist/parallel.py::serving_rows).
 
 Usage:
   python -m emlight_tpu_torch.cli.test_regression \
@@ -27,10 +30,12 @@ import torch
 
 from ..core.hdr import TONEMAP_TEST, read_hdr
 from ..core.png import write_png
+from ..dist.parallel import serving_rows
 from ..representation.splat import render_anchor_params
 from ..train.config_io import apply_saved_defaults
-from ._common import (add_device_flag, checked_device, crop_names, load_regressor,
-                      regression_config, regressor_apply, saved_dtype, tonemapped_crop)
+from ._common import (PARALLEL_HELP, add_device_flag, checked_device, crop_names, launch,
+                      load_regressor, regression_config, regressor_apply, saved_dtype,
+                      tonemapped_crop)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -44,7 +49,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--limit", type=int, default=0)
     ap.add_argument("--render", action="store_true", help="also dump env-map previews")
     ap.add_argument("--parallel", action="store_true",
-                    help="not ported yet (ROADMAP.md §1, \"Multi-GPU\"): exits")
+                    help="each batch's crops split over the ranks (a ragged one padded); "
+                         + PARALLEL_HELP)
     ap.add_argument("--eval_apply", choices=("fast", "standard"), default="fast",
                     help="eval forward: 'fast' (default) is the concat-free channels-last "
                          "buffer forward (nn/densenet_fast.buffer_apply) as a closure over "
@@ -68,7 +74,11 @@ def main(argv=None) -> None:
     dev = checked_device(ap, argv)
     saved = apply_saved_defaults(ap, argv, exclude=("out_dir",))
     args = ap.parse_args(argv)
+    launch(main, argv, args.parallel, dev, lambda d, group: _serve(args, saved, d, group))
 
+
+def _serve(args, saved: dict | None, dev, group) -> None:
+    """The run on `dev`, as one rank of `group` under --parallel."""
     cfg = regression_config(args.anchors, args.crop, args.block_config, args.clip_grad_norm,
                             dtype=saved_dtype(saved))
     regressor = load_regressor(args.ckpt, cfg, dev)
@@ -77,12 +87,13 @@ def main(argv=None) -> None:
     crop_dir, names = crop_names(args.crops, args.data_root, args.limit)
     os.makedirs(args.out_dir, exist_ok=True)
     for s in range(0, len(names), args.batch):
-        chunk = names[s : s + args.batch]
+        rows, n_real = serving_rows(len(names[s : s + args.batch]), group)
+        chunk = [names[s + i] for i in rows]
         crops = [tonemapped_crop(read_hdr(os.path.join(crop_dir, nm)), cfg.crop_h, cfg.crop_w)[1]
                  for nm in chunk]
         pred = apply(torch.as_tensor(np.stack(crops), device=dev))
         pred = {k: v.cpu().numpy() for k, v in pred.items()}
-        for i, nm in enumerate(chunk):
+        for i, nm in enumerate(chunk[:n_real]):
             para = {
                 "distribution": pred["distribution"][i],
                 "intensity": pred["intensity"][i, 0],
@@ -104,7 +115,8 @@ def main(argv=None) -> None:
                 tone, _ = TONEMAP_TEST(np.maximum(env.cpu().numpy()[0], 0.0))
                 write_png(os.path.join(args.out_dir, nm.replace(".exr", "_env.png")),
                           (tone * 255).astype(np.uint8))
-        print(f"{min(s + args.batch, len(names))}/{len(names)}")
+        if group is None or group.rank == 0:
+            print(f"{min(s + args.batch, len(names))}/{len(names)}")
 
 
 if __name__ == "__main__":

@@ -22,7 +22,14 @@ forward (fused_gan_step); --scan_steps N runs N fused steps per chunk
 (scanned_fused_steps) with no host synchronisation inside it, the chunk's
 metrics read once, logged per step, and display and save fired once at a
 chunk boundary that crossed their cadence. Both need --d_steps_per_g 1.
---parallel exits with its ROADMAP.md §1 item, "Multi-GPU".
+
+--parallel trains data-parallel over one rank per card (cli/_common.py::
+launch; dist/parallel.py), --fused too: each rank reads its rows of every
+global batch (--batch_size must split over the ranks), G's syncbatch norms
+take the global batch's moments, each step's gradients are averaged over
+the ranks, and rank 0 writes every file, the metrics averaged over the
+ranks; its web/ previews show its rows, whose first is the global batch's.
+--scan_steps > 1 with --parallel exits, as in the JAX CLI.
 
 Usage:
   python -m emlight_tpu_torch.cli.train_projector --data_root /data/LavalIndoor \
@@ -41,6 +48,7 @@ import torch
 
 from ..core.hdr import TONEMAP_VIZ
 from ..core.png import write_png
+from ..dist import mesh
 from ..nn.vgg import VGG19Features, load_vgg19_params, random_vgg19_params
 from ..train import projector as P
 from ..train.checkpoint import latest_checkpoint, restore_train_state, save_train_state
@@ -48,8 +56,8 @@ from ..train.config_io import apply_saved_defaults, report_overrides, save_run_c
 from ..train.data import (ProjectorDataset, batched, device_prefetch, prefetch,
                           synthetic_projector_batch)
 from ..train.loop import IterationTimer, MetricsLogger, NaNGuard
-from ._common import (PARALLEL_NOT_PORTED, add_device_flag, checked_device, next_timed,
-                      projector_config, refuse)
+from ._common import (PARALLEL_HELP, add_device_flag, checked_device, launch, next_timed,
+                      projector_config, rank_count)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -76,7 +84,8 @@ def _parser() -> argparse.ArgumentParser:
                          "weaker perceptual proxy than pretrained)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--parallel", action="store_true",
-                    help="not ported yet (ROADMAP.md §1, \"Multi-GPU\"): exits")
+                    help="data-parallel over the ranks, --batch_size the global batch "
+                         "(with --fused too; not with --scan_steps); " + PARALLEL_HELP)
     ap.add_argument("--display_every", type=int, default=100)
     ap.add_argument("--save_every", type=int, default=500)
     ap.add_argument("--clip_grad_norm", type=float, default=0.0,
@@ -101,29 +110,45 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Run the CLI; returns the checkpoint's step if one was restored, the
     loop's first and final step, its waits on the data queue (s), its wall
-    time (s) and, on the card, each step's device time (ms)."""
+    time (s) and, on the card, each step's device time (ms): rank 0's under
+    --parallel."""
     ap = _parser()
     dev = checked_device(ap, argv)
     saved = apply_saved_defaults(ap, argv)
     args = ap.parse_args(argv)
-    refuse(ap, (args.parallel, PARALLEL_NOT_PORTED))  # an opt.json's too
     if (args.fused or args.scan_steps > 1) and args.d_steps_per_g != 1:
         raise SystemExit("--fused/--scan_steps require d_steps_per_g=1 (the "
                          "fused step takes one G and one D update per iteration)")
-    report_overrides(saved, args)
-    save_run_config(args.out_dir, args)
+    if args.scan_steps > 1 and args.parallel:
+        raise SystemExit("--scan_steps runs single-chip; drop --parallel "
+                         "(or use --fused, which composes with it)")
+    ranks = rank_count(args.parallel, dev)
+    if args.batch_size % ranks:
+        raise SystemExit(f"--batch_size {args.batch_size} does not split over the {ranks} "
+                         "ranks of --parallel")
+    return launch(main, argv, args.parallel, dev,
+                  lambda d, group: _train(args, saved, d, group))
+
+
+def _train(args, saved: dict | None, dev, group) -> dict:
+    """The run on `dev`, as one rank of `group` under --parallel."""
+    writer = group is None or group.rank == 0
+    if writer:
+        report_overrides(saved, args)
+        save_run_config(args.out_dir, args)
 
     cfg = projector_config(args, batch_size=args.batch_size, lr=args.lr,
                            gan_mode=args.gan_mode, d_steps_per_g=args.d_steps_per_g)
     env_h, env_w = args.crop_size // 2, args.crop_size
+    say = print if writer else (lambda *a: None)
     vgg_params = load_vgg19_params(args.vgg_npz)
     if vgg_params is not None:
-        print("VGG19 perceptual loss enabled (pretrained npz)")
+        say("VGG19 perceptual loss enabled (pretrained npz)")
     elif args.vgg_random:
         vgg_params = random_vgg19_params()
-        print("VGG19 perceptual loss enabled (random-init weights)")
+        say("VGG19 perceptual loss enabled (random-init weights)")
     else:
-        print("VGG19 weights unavailable -> perceptual term disabled (see nn/vgg.py)")
+        say("VGG19 weights unavailable -> perceptual term disabled (see nn/vgg.py)")
     vgg = VGG19Features(vgg_params, device=dev) if vgg_params is not None else None
 
     if args.synthetic:
@@ -133,39 +158,45 @@ def main(argv=None) -> dict:
             rng = np.random.default_rng(0)
             while True:
                 for _ in range(steps_per_epoch):
-                    yield synthetic_projector_batch(
+                    yield mesh.shard_batch(synthetic_projector_batch(
                         args.batch_size, args.anchors, args.crop_size // 2,
                         (env_h, env_w), seed=int(rng.integers(1 << 31)),
-                    )
+                    ), group)
         batches = gen()
     else:
         assert args.data_root, "--data_root or --synthetic required"
         ds = ProjectorDataset(args.data_root, crop_size=args.crop_size // 2)
-        print(f"dataset: {len(ds)} samples")
+        say(f"dataset: {len(ds)} samples")
         steps_per_epoch = max(len(ds) // args.batch_size, 1)
-        batches = prefetch(batched(ds, args.batch_size, epochs=args.epochs), depth=4)
+        batches = prefetch(batched(ds, args.batch_size, epochs=args.epochs, group=group),
+                           depth=4)
 
-    state = P.create_state(cfg, device=dev, steps_per_epoch=steps_per_epoch)
+    state = P.create_state(cfg, device=dev, steps_per_epoch=steps_per_epoch, group=group)
     ckpt_dir = os.path.join(args.out_dir, "checkpoints")
     restored = None
     if args.resume and latest_checkpoint(ckpt_dir):
         restored = restore_train_state(latest_checkpoint(ckpt_dir), state).step
-        print(f"restored checkpoint at step {restored}")
+        say(f"restored checkpoint at step {restored}")
+    mesh.replicate([state.g, state.d], group)
 
-    logger = MetricsLogger(args.out_dir)
-    timer = IterationTimer(args.out_dir, args.batch_size, device=dev).resume()
+    logger = MetricsLogger(args.out_dir, writer=writer)
+    timer = IterationTimer(args.out_dir, args.batch_size, device=dev, writer=writer).resume()
     guard = NaNGuard()
     total_steps = args.epochs * steps_per_epoch
     start, waits, t_loop = timer.step, [], time.perf_counter()
 
-    loop = _run_scanned if args.scan_steps > 1 else _run_steps
-    loop(args, state, device_prefetch(batches, dev), vgg, total_steps, timer, logger, guard,
-         waits, ckpt_dir)
+    if args.scan_steps > 1:
+        _run_scanned(args, state, device_prefetch(batches, dev), vgg, total_steps, timer,
+                     logger, guard, waits, ckpt_dir)
+    else:
+        _run_steps(args, state, device_prefetch(batches, dev), vgg, total_steps, timer,
+                   logger, guard, waits, ckpt_dir, writer)
     loop_s = time.perf_counter() - t_loop
 
-    save_train_state(ckpt_dir, state, "latest")
-    timer.record()
-    print(f"done at step {timer.step}; stats {timer.stats()}")
+    if writer:
+        save_train_state(ckpt_dir, state, "latest")
+        timer.record()
+        print(f"done at step {timer.step}; stats {timer.stats()}")
     return {"restored": restored, "start": start, "step": timer.step, "wait_s": waits,
             "loop_s": loop_s, "step_ms": timer.device_ms}
 
@@ -180,9 +211,11 @@ def _display(out_dir: str, step: int, fake: torch.Tensor, real: torch.Tensor) ->
 
 
 def _run_steps(args, state, it, vgg, total_steps, timer, logger, guard, waits,
-               ckpt_dir) -> None:
-    """One step per batch: --fused's fused_gan_step, or G every
-    --d_steps_per_g iterations and D every iteration (train.py:29-37)."""
+               ckpt_dir, writer: bool) -> None:
+    """One step per batch: --fused's fused step, or G every --d_steps_per_g
+    iterations and D every iteration (train.py:29-37), under the state's
+    group if it has one. Only the `writer` writes previews and
+    checkpoints."""
     while timer.step < total_steps:
         item = next_timed(it, waits)
         if item is None:
@@ -202,7 +235,8 @@ def _run_steps(args, state, it, vgg, total_steps, timer, logger, guard, waits,
                 metrics.update(sorted(P.discriminator_step(state, tb).items()))
         guard.check(timer.step, metrics)
         logger.log(timer.step, metrics, timer.stats())
-
+        if not writer:
+            continue
         if args.display_every and timer.step % args.display_every == 0 and "loss_G" in metrics:
             _display(args.out_dir, timer.step, fake, tb["warped"])
         if args.save_every and timer.step % args.save_every == 0:

@@ -1,7 +1,8 @@
 """Sinkhorn spherical-transport divergence (EMLight's anchor EMD loss).
 
-Port of emlight_tpu/losses/sinkhorn.py, the single-device branch
-(``axis_name=None``). Same semantics as the reference's tensorized unbiased
+Port of emlight_tpu/losses/sinkhorn.py; its ``axis_name`` is the port's
+``group`` (a dist/mesh.py RankGroup), over whose ranks the data diameter is
+taken. Same semantics as the reference's tensorized unbiased
 Sinkhorn divergence (RegressionNetwork/geomloss/) and its GMLight geometric
 variant:
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.geometry import geometric_points, sphere_points
+from ..dist.mesh import global_extremum
 
 __all__ = ["anchor_cost_matrix", "geometric_cost_matrix", "geometric_cost_matrix_tensor",
            "log_weights", "softmin", "epsilon_schedule", "sinkhorn_divergence", "SamplesLoss"]
@@ -137,14 +139,16 @@ def sinkhorn_divergence(x: torch.Tensor, y: torch.Tensor, *,
                         alpha: torch.Tensor | None = None, beta: torch.Tensor | None = None,
                         p: float = 2.0, blur: float = 0.025, scaling: float = 0.5,
                         diameter: float | None = None, n_iters: int = 12,
-                        value_weight: float = 0.1) -> torch.Tensor:
+                        value_weight: float = 0.1, group=None) -> torch.Tensor:
     """Unbiased Sinkhorn divergence S_ε(α, β) between anchored histograms.
 
     Cost C(x_i, y_j) = (value_weight·(x_i - y_j)² + M_ij) / 2 with M the
     anchor-distance matrix and the second argument of each pairwise cost
     detached. x, y: (B, N[, 1]); alpha, beta default uniform; diameter a
     float for the exact reference schedule, None for the data's diameter with
-    the fixed-length clamped schedule. Returns (B,) divergences.
+    the fixed-length clamped schedule; with a ``group`` that diameter is the
+    global batch's (a min and a max over the ranks, without a gradient, as
+    the reference takes it under no_grad). Returns (B,) divergences.
     """
     b = x.shape[0]
     x = x.reshape(b, -1)
@@ -166,8 +170,8 @@ def sinkhorn_divergence(x: torch.Tensor, y: torch.Tensor, *,
 
     c_xx, c_yy, c_xy, c_yx = cost(x, x), cost(y, y), cost(x, y), cost(y, x)
     if diameter is None:
-        lo = torch.minimum(x.min(), y.min())
-        hi = torch.maximum(x.max(), y.max())
+        lo = global_extremum(torch.minimum(x.min(), y.min()), group, True)
+        hi = global_extremum(torch.maximum(x.max(), y.max()), group, False)
         d = (hi - lo).abs().detach() + 1e-8
         eps_s = _clamped_schedule(d, p, blur, scaling, n_iters)
     else:
@@ -184,25 +188,30 @@ class SamplesLoss:
         values = loss(dist_pred, dist_gt)   # (B,)
 
     n_anchors picks the anchor cost matrix (96 for EMLight's regression loss,
-    128 for GMLight); ``geometry`` (per-anchor depths) the GMLight variant.
-    Only the single-device branch is ported (``axis_name`` must be None).
+    128 for GMLight); ``geometry`` (per-anchor depths) the GMLight variant;
+    ``group`` (a dist/mesh.py RankGroup) the ranks whose global batch the
+    diameter is taken over (the JAX package's ``axis_name``, which names a
+    JAX mesh axis and is refused here).
     """
 
     def __init__(self, loss: str = "sinkhorn", p: float = 2.0, blur: float = 0.05,
                  reach=None, diameter: float | None = None, scaling: float = 0.5,
                  batchsize: int | None = None, n_anchors: int = 96, n_iters: int = 12,
-                 backend: str = "auto", geometry=None, axis_name: str | None = None):
+                 backend: str = "auto", geometry=None, axis_name: str | None = None,
+                 group=None):
         if loss != "sinkhorn":
             raise NotImplementedError("only the sinkhorn branch exists in the reference")
         if reach is not None:
             raise NotImplementedError("reference always runs balanced OT (reach=None)")
         if axis_name is not None:
-            raise NotImplementedError("the multi-device Sinkhorn is not ported")
+            raise NotImplementedError("axis_name names a JAX mesh axis: pass group, a "
+                                      "dist/mesh.py RankGroup")
         if backend != "auto":
             raise ValueError(f"unknown backend {backend!r}: the port has one loop ('auto')")
         self.p, self.blur, self.scaling = p, blur, scaling
         self.diameter = diameter
         self.n_iters = n_iters
+        self.group = group
         m = (geometric_cost_matrix(n_anchors, geometry) if geometry is not None
              else anchor_cost_matrix(n_anchors))
         self.M = torch.from_numpy(m)
@@ -216,4 +225,4 @@ class SamplesLoss:
             m = self.M
         return sinkhorn_divergence(x, y, cost_matrix=m, p=self.p, blur=self.blur,
                                    scaling=self.scaling, diameter=self.diameter,
-                                   n_iters=self.n_iters)
+                                   n_iters=self.n_iters, group=self.group)

@@ -66,10 +66,10 @@ def _conv(cin: int, cout: int, k: int, generator: torch.Generator | None) -> nn.
     return conv
 
 
-def _bn(c: int, dtype: torch.dtype) -> BatchNorm:
+def _bn(c: int, dtype: torch.dtype, group=None) -> BatchNorm:
     """flax BatchNorm with scale and bias on NCHW, under nn.BatchNorm2d's
-    state-dict names (the weight bridge fills them)."""
-    return BatchNorm(c, channel_dim=1, affine=True, torch_names=True, dtype=dtype)
+    state-dict names (the weight bridge fills them); synced over `group`."""
+    return BatchNorm(c, channel_dim=1, affine=True, torch_names=True, dtype=dtype, group=group)
 
 
 def _conv_in(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -82,24 +82,28 @@ def _conv_in(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
 def heads_f32(model: "DenseNet", x: torch.Tensor) -> dict[str, torch.Tensor]:
     """The four heads on the fc's output, in float32 (in float64 for a
     float64 model: the features are rounded to float32 first either way, as
-    the JAX package computes them)."""
-    x = x.to(torch.float32).to(model.fc_dist.weight.dtype)
-    return {name: getattr(model, mod)(x) for name, mod in _HEADS}
+    the JAX package computes them). Each head reads its own cast of the
+    rounded features, as each of JAX's promotes them apart, so each head's
+    cotangent is rounded to float32 before the four are summed, in JAX's
+    order."""
+    x = x.to(torch.float32)
+    dt = model.fc_dist.weight.dtype
+    return {name: getattr(model, mod)(x.to(dt)) for name, mod in _HEADS}
 
 
 class _DenseLayer(nn.Module):
     def __init__(self, cin: int, growth_rate: int, bn_size: int,
                  generator: torch.Generator | None, dtype: torch.dtype,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, group=None):
         super().__init__()
         self.remat = False
-        self.norm1 = _bn(cin, dtype)
+        self.norm1 = _bn(cin, dtype, group)
         self.conv1 = _conv(cin, bn_size * growth_rate, 1, generator)
         if fold_bn:
             self.conv2 = nn.Conv2d(bn_size * growth_rate, growth_rate, 3, padding=0, bias=True)
             self.conv2_pad = nn.Parameter(torch.zeros(bn_size * growth_rate))
         else:
-            self.norm2 = _bn(bn_size * growth_rate, dtype)
+            self.norm2 = _bn(bn_size * growth_rate, dtype, group)
             self.conv2 = _conv(bn_size * growth_rate, growth_rate, 3, generator)
 
     def _train_body(self, x: torch.Tensor):
@@ -141,9 +145,9 @@ class _DenseLayer(nn.Module):
 
 class _Transition(nn.Module):
     def __init__(self, cin: int, cout: int, generator: torch.Generator | None,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, group=None):
         super().__init__()
-        self.norm = _bn(cin, dtype)
+        self.norm = _bn(cin, dtype, group)
         self.conv = _conv(cin, cout, 1, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -154,7 +158,10 @@ class DenseNet(nn.Module):
     """crop (B, H, W, 3) -> {distribution, intensity, rgb_ratio, ambient}.
 
     ``input_hw`` fixes the fc width: the default 192x256 crop gives the
-    reference's 8208-dim pooled feature vector (6 x 8 x 171).
+    reference's 8208-dim pooled feature vector (6 x 8 x 171). ``group``
+    (a dist/mesh.py RankGroup) syncs every BatchNorm over the ranks in
+    training (the JAX DenseNet's ``axis_name``); nn/densenet_fast.py's
+    train forward reads it too.
     """
 
     def __init__(self, growth_rate: int = 12, block_config: Sequence[int] = (16, 16, 16),
@@ -163,8 +170,9 @@ class DenseNet(nn.Module):
                  input_hw: tuple[int, int] = (192, 256),
                  generator: torch.Generator | None = None,
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, group=None):
         super().__init__()
+        self.group = group
         self.block_config = tuple(block_config)
         self.growth_rate = growth_rate
         self.num_init_features = num_init_features
@@ -173,18 +181,20 @@ class DenseNet(nn.Module):
         self.dtype = dtype
         self.fold_bn = fold_bn
         self.conv0 = _conv(3, num_init_features, 3, generator)
-        self.norm0 = _bn(num_init_features, dtype)
+        self.norm0 = _bn(num_init_features, dtype, group)
         num_features = num_init_features
         h, w = input_hw
         for i, num_layers in enumerate(self.block_config, start=1):
             for j in range(1, num_layers + 1):
                 cin = num_features + (j - 1) * growth_rate
                 self.add_module(f"denseblock{i}_denselayer{j}",
-                                _DenseLayer(cin, growth_rate, bn_size, generator, dtype, fold_bn))
+                                _DenseLayer(cin, growth_rate, bn_size, generator, dtype, fold_bn,
+                                            group))
             cin = num_features + num_layers * growth_rate
             num_features = int(math.floor(cin * compression))
-            self.add_module(f"transition{i}", _Transition(cin, num_features, generator, dtype))
-            self.add_module(f"last_norm{i}", _bn(num_features, dtype))
+            self.add_module(f"transition{i}", _Transition(cin, num_features, generator, dtype,
+                                                          group))
+            self.add_module(f"last_norm{i}", _bn(num_features, dtype, group))
             h, w = h // 2, w // 2
         h, w = h // avgpool_size, w // avgpool_size
         self.fc = dense(h * w * num_features, 1024, generator)

@@ -62,6 +62,7 @@ import torch.nn.functional as F
 
 from .dense_conv import fused_affine_conv3x3
 from .dense_conv_kernel import dense_conv_dk, dense_conv_dx, dense_conv_fwd
+from ..dist.mesh import all_reduce_sum_, global_moments
 from .densenet import DenseNet, heads_f32
 
 __all__ = ["buffer_apply", "buffer_forward", "eval_plan", "fast_apply", "train_apply"]
@@ -237,12 +238,14 @@ def fast_apply(model: DenseNet, crop: torch.Tensor, group: int = 4) -> dict[str,
 # -- train ---------------------------------------------------------------------
 
 
-def _moments(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _moments(h: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (mean, mean of squares) of an NHWC tensor in float32
-    (float64 for float64 h): flax's train-mode statistics."""
+    (float64 for float64 h): flax's train-mode statistics; with a group
+    the global batch's (emlight_tpu/nn/densenet_fast.py::_batch_stats_nchw
+    with its axis_name: one all-reduce of the stacked pair)."""
     hf = h.to(_stat_dtype(h.dtype))
     dims = tuple(range(h.dim() - 1))
-    return hf.mean(dims), (hf * hf).mean(dims)
+    return global_moments(hf.mean(dims), (hf * hf).mean(dims), group)
 
 
 def _affine(mu, mu2, scale, bias, eps: float):
@@ -270,16 +273,28 @@ def _norm_train(h, mu, mu2, bn, dt, eps: float, relu: bool = False):
     return (F.relu(y) if relu else y), var
 
 
-def _route(g: torch.Tensor, x: torch.Tensor, g_mu, g_mu2) -> torch.Tensor:
+def _route(g: torch.Tensor, x: torch.Tensor, g_mu, g_mu2, ranks: int = 1) -> torch.Tensor:
     """g += g_mu / N + 2 x g_mu2 / N in place: the cotangents of x's
-    per-channel mean and mean of squares (over N = B·H·W) routed onto x.
-    A cotangent that is None adds nothing."""
-    n = x.numel() // x.shape[-1]
+    per-channel mean and mean of squares (over N = B·H·W times the rank
+    count: the global batch's moments) routed onto x. A cotangent that is
+    None adds nothing."""
+    n = x.numel() // x.shape[-1] * ranks
     if g_mu2 is not None:
         g.addcmul_(x, g_mu2 * (2.0 / n))
     if g_mu is not None:
         g.add_(g_mu / n)
     return g
+
+
+def _summed(group, a, b):
+    """The cotangents (a, b) of global moments summed over the ranks (one
+    all-reduce of the pair): every rank's loss reads the global moments,
+    so each rank's part of their cotangent is added up before it is routed
+    onto the rank's rows. Unchanged without a group; None stays None."""
+    if group is None or a is None:
+        return a, b
+    both = all_reduce_sum_(torch.stack([a, b]), group)
+    return both[0], both[1]
 
 
 def _affine_vjp(mu, mu2, scale, g_mul, g_shift, eps: float):
@@ -298,14 +313,23 @@ class _DenseBlock(torch.autograd.Function):
     of emlight_tpu/nn/densenet_fast.py::_block_core.
 
     apply(x, spec, *lparams): x (B, H, W, C0) in the compute dtype, spec =
-    (num_layers, growth_rate, eps), lparams per layer (norm1 scale, bias,
-    conv1 (cin, 48), norm2 scale, bias, conv2 HWIO). Returns (buf (B, H, W,
-    C0 + L·g), mu_all, mu2_all (C0 + L·g,), the norm2 moments n2mu, n2mu2
-    (L, 48)); the moments are float32 (float64 for float64 x)."""
+    (num_layers, growth_rate, eps, group), lparams per layer (norm1 scale,
+    bias, conv1 (cin, 48), norm2 scale, bias, conv2 HWIO). Returns (buf (B,
+    H, W, C0 + L·g), mu_all, mu2_all (C0 + L·g,), the norm2 moments n2mu,
+    n2mu2 (L, 48)); the moments are float32 (float64 for float64 x).
+
+    With a group (a dist/mesh.py RankGroup) every moment is the global
+    batch's: the forward all-reduces each plane's moments as it writes the
+    plane, and the backward sums each moment cotangent over the ranks
+    before routing it with N the global count: the block's input
+    cotangent, and one pair per norm of each layer, about two small
+    all-reduces a layer. (The JAX package's _block_core scales N by the
+    axis size but never sums the cotangents, so its parallel gradient is
+    not the global batch's; ROADMAP.md §3.)"""
 
     @staticmethod
     def forward(ctx, x, spec, *lparams):
-        num_layers, g, eps = spec
+        num_layers, g, eps, group = spec
         dt = x.dtype
         bsz, hh, ww, c0 = x.shape
         total = c0 + num_layers * g
@@ -313,7 +337,7 @@ class _DenseBlock(torch.autograd.Function):
         buf[..., :c0] = x
         mu_all = x.new_empty(total, dtype=_stat_dtype(dt))
         mu2_all = torch.empty_like(mu_all)
-        mu_all[:c0], mu2_all[:c0] = _moments(x)
+        mu_all[:c0], mu2_all[:c0] = _moments(x, group)
         h1s, n2mu, n2mu2 = [], [], []
         for j in range(num_layers):
             cin = c0 + j * g
@@ -322,11 +346,11 @@ class _DenseBlock(torch.autograd.Function):
             y1 = _pre_act(buf[..., :cin], mul, shift).relu_().to(dt)
             h1 = _matmul_c(y1, k1.to(dt))
             del y1
-            m2, m22 = _moments(h1)
+            m2, m22 = _moments(h1, group)
             a2, c2 = _affine(m2, m22, s2, b2, eps)
             h = dense_conv_fwd(h1, a2, c2, k2.to(dt).contiguous()).to(dt)
             buf[..., cin:cin + g] = h
-            mu_all[cin:cin + g], mu2_all[cin:cin + g] = _moments(h)
+            mu_all[cin:cin + g], mu2_all[cin:cin + g] = _moments(h, group)
             h1s.append(h1)
             n2mu.append(m2)
             n2mu2.append(m22)
@@ -337,7 +361,8 @@ class _DenseBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_buf, g_mu_all, g_mu2_all, g_n2mu, g_n2mu2):
-        num_layers, g, eps = ctx.spec
+        num_layers, g, eps, group = ctx.spec
+        ranks = 1 if group is None else group.size
         buf, mu_all, mu2_all, n2mu, n2mu2, *rest = ctx.saved_tensors
         h1s, lparams = rest[:num_layers], rest[num_layers:]
         dt = buf.dtype
@@ -345,7 +370,7 @@ class _DenseBlock(torch.autograd.Function):
         # moment cotangents from the block's consumers (the transition's
         # norm) route straight onto the planes of the final buffer
         g_acc = torch.zeros_like(buf) if g_buf is None else g_buf.to(dt).contiguous().clone()
-        _route(g_acc, buf, g_mu_all, g_mu2_all)
+        _route(g_acc, buf, *_summed(group, g_mu_all, g_mu2_all), ranks)
         g_lparams = [None] * len(lparams)
         for j in reversed(range(num_layers)):
             cin = c0 + j * g
@@ -362,7 +387,7 @@ class _DenseBlock(torch.autograd.Function):
                                                   eps)
             if g_n2mu is not None:
                 g_m2, g_m22 = g_m2 + g_n2mu[j], g_m22 + g_n2mu2[j]
-            g_h1 = _route(dx.to(_stat_dtype(dt)), h1, g_m2, g_m22).to(dt)
+            g_h1 = _route(dx.to(_stat_dtype(dt)), h1, *_summed(group, g_m2, g_m22), ranks).to(dt)
             del dx
             # stage a: norm1 + ReLU -> conv1, recomputed from the final buffer
             xs = buf[..., :cin]
@@ -379,7 +404,8 @@ class _DenseBlock(torch.autograd.Function):
             g_mu1, g_mu21, g_s1, g_b1 = _affine_vjp(mu1, mu21, s1, d_mul, d_shift, eps)
             # dx = dpre * mul and norm1's moments, on contiguous dpre; then
             # one strided add into the layer's input planes
-            g_acc[..., :cin] += _route(dpre.mul_(mul), xf, g_mu1, g_mu21).to(dt)
+            g_acc[..., :cin] += _route(dpre.mul_(mul), xf, *_summed(group, g_mu1, g_mu21),
+                                       ranks).to(dt)
             del dpre
             g_lparams[6 * j:6 * j + 6] = (g_s1, g_b1, dk1.to(k1.dtype), g_s2, g_b2,
                                           dk2.to(k2.dtype))
@@ -389,18 +415,18 @@ class _DenseBlock(torch.autograd.Function):
 def _block_plain(x, spec, *lparams):
     """``_DenseBlock``'s function under plain autograd, out of place: each
     layer concatenates the planes written so far (block_vjp=False)."""
-    num_layers, g, eps = spec
+    num_layers, g, eps, group = spec
     dt = x.dtype
-    planes, mus, mu2s = [x], *[[m] for m in _moments(x)]
+    planes, mus, mu2s = [x], *[[m] for m in _moments(x, group)]
     n2mu, n2mu2 = [], []
     for j in range(num_layers):
         s1, b1, k1, s2, b2, k2 = lparams[6 * j:6 * j + 6]
         mul, shift = _affine(torch.cat(mus), torch.cat(mu2s), s1, b1, eps)
         h1 = _matmul_c(F.relu(_pre_act(torch.cat(planes, dim=-1), mul, shift)).to(dt), k1.to(dt))
-        m2, m22 = _moments(h1)
+        m2, m22 = _moments(h1, group)
         a2, c2 = _affine(m2, m22, s2, b2, eps)
         h = fused_affine_conv3x3(h1, a2, c2, k2)
-        m, mq = _moments(h)
+        m, mq = _moments(h, group)
         planes.append(h)
         mus.append(m)
         mu2s.append(mq)
@@ -425,11 +451,13 @@ def train_apply(model: DenseNet, crop: torch.Tensor, *, momentum: float = 0.9,
     statistics are updated in place. Equal to ``model.train()(crop)`` up to
     float reassociation, with each plane's batch moments computed once.
     block_vjp=False runs the blocks under plain autograd instead of
-    ``_DenseBlock``'s backward."""
+    ``_DenseBlock``'s backward. Under ``model.group`` every moment is the
+    global batch's over the ranks (``_DenseBlock``)."""
     dt = model.dtype
     g = model.growth_rate
+    group = model.group
     x = _conv3x3_nhwc(crop.to(dt), model.conv0.weight)
-    mu, mu2 = _moments(x)
+    mu, mu2 = _moments(x, group)
     x, var = _norm_train(x, mu, mu2, model.norm0, dt, eps, relu=True)
     _ra_update(model.norm0, mu, var, momentum)
     num_features = model.num_init_features
@@ -439,7 +467,7 @@ def train_apply(model: DenseNet, crop: torch.Tensor, *, momentum: float = 0.9,
             layer = model.dense_layer(i, j)
             lparams += [layer.norm1.weight, layer.norm1.bias, _conv1x1_kernel(layer.conv1),
                         layer.norm2.weight, layer.norm2.bias, _conv3x3_kernel(layer.conv2)]
-        spec = (num_layers, g, eps)
+        spec = (num_layers, g, eps, group)
         block = _DenseBlock.apply if block_vjp else _block_plain
         buf, mu_all, mu2_all, n2mu, n2mu2 = block(x, spec, *lparams)
         with torch.no_grad():
@@ -457,7 +485,7 @@ def train_apply(model: DenseNet, crop: torch.Tensor, *, momentum: float = 0.9,
         x = _avg_pool_nhwc(_matmul_c(x, _conv1x1_kernel(tr.conv).to(dt)), 2)
         num_features = int(math.floor(num_features * model.compression))
         last = getattr(model, f"last_norm{i}")
-        mu, mu2 = _moments(x)
+        mu, mu2 = _moments(x, group)
         x, var = _norm_train(x, mu, mu2, last, dt, eps)
         _ra_update(last, mu, var, momentum)
     x = _avg_pool_nhwc(F.relu(x), model.avgpool_size).flatten(1)

@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..dist.mesh import global_moments
+
 __all__ = ["spectral_sigma", "spectral_normalize", "spectral_power_iteration", "l2_normalize",
            "BatchNorm", "instance_norm", "resize_nearest", "resize_bilinear", "avg_pool_3x3s2",
            "full_f32_matmul", "dense"]
@@ -88,12 +90,20 @@ class BatchNorm(nn.Module):
     ``var`` as flax does; the weight bridge (train/jax_weights.py) fills
     either. num_batches_tracked is carried for that layout only and is not
     counted.
+
+    ``group`` (a dist/mesh.py RankGroup) makes it flax's
+    BatchNorm(axis_name): the moments are the global batch's over the ranks
+    (each rank's mean and mean of squares, all-reduced and divided by the
+    rank count, differentiably), and so are the variance and the running
+    statistics, which every rank then holds alike. Not nn.SyncBatchNorm,
+    which keeps the unbiased running variance.
     """
 
     def __init__(self, channels: int, *, channel_dim: int = -1, affine: bool = False,
                  torch_names: bool = False, eps: float = 1e-5, momentum: float = 0.9,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, group=None):
         super().__init__()
+        self.group = group
         self.channel_dim = channel_dim
         self.eps = eps
         self.momentum = momentum
@@ -116,11 +126,12 @@ class BatchNorm(nn.Module):
 
     def moments(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """(mean, biased var) of the batch in float32 (float64 for a float64
-        x), differentiable; the running statistics are not touched."""
+        x), differentiable; the global batch's with a group. The running
+        statistics are not touched."""
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
         dims = [d for d in range(x.dim()) if d != self.channel_dim % x.dim()]
-        mean = xs.mean(dims)
-        var = torch.clamp((xs * xs).mean(dims) - mean * mean, min=0.0)
+        mean, mu2 = global_moments(xs.mean(dims), (xs * xs).mean(dims), self.group)
+        var = torch.clamp(mu2 - mean * mean, min=0.0)
         return mean, var
 
     @torch.no_grad()

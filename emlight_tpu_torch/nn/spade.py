@@ -121,16 +121,20 @@ class SPADE(nn.Module):
     """Spatially-adaptive denormalization conditioned on the env-map guide.
 
     Takes its slice ``shared_a`` of the block-level fused mlp_shared conv
-    (SPADEResnetBlock computes it once for all of its norms).
+    (SPADEResnetBlock computes it once for all of its norms). ``group`` (a
+    dist/mesh.py RankGroup) syncs a "syncbatch" norm over the ranks.
     """
 
     def __init__(self, norm_nc: int, norm_type: str = "syncbatch", nhidden: int = 128,
                  compute_dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, group=None):
         super().__init__()
         if norm_type not in ("syncbatch", "batch", "instance"):
             raise ValueError(f"unknown SPADE norm {norm_type!r}")
-        self.param_free_norm = None if norm_type == "instance" else BatchNorm(norm_nc)
+        # the group syncs "syncbatch" only; "batch" keeps each rank's own
+        # moments (emlight_tpu/nn/spade.py:109)
+        self.param_free_norm = None if norm_type == "instance" else BatchNorm(
+            norm_nc, group=group if norm_type == "syncbatch" else None)
         # gamma and beta convs share the input: ONE conv with 2C outputs
         self.mlp_gammabeta = SphereConv2D(nhidden, 2 * norm_nc, compute_dtype=compute_dtype,
                                           generator=generator)
@@ -152,7 +156,7 @@ class SPADEResnetBlock(nn.Module):
     def __init__(self, fin: int, fout: int, norm_type: str = "syncbatch",
                  nhidden: int = 128, label_nc: int = 3,
                  compute_dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, group=None):
         super().__init__()
         fmiddle = min(fin, fout)
         self.learned_shortcut = fin != fout
@@ -162,12 +166,12 @@ class SPADEResnetBlock(nn.Module):
         # one fused cin=3 conv for every norm of the block, split in
         # (norm_0, norm_1[, norm_s]) order
         self.mlp_shared = SphereConv2D(label_nc, n_norms * nhidden, **kw)
-        self.norm_0 = SPADE(fin, norm_type, nhidden, **kw)
-        self.norm_1 = SPADE(fmiddle, norm_type, nhidden, **kw)
+        self.norm_0 = SPADE(fin, norm_type, nhidden, group=group, **kw)
+        self.norm_1 = SPADE(fmiddle, norm_type, nhidden, group=group, **kw)
         self.conv_0 = SNSphereConv(fin, fmiddle, **kw)
         self.conv_1 = SNSphereConv(fmiddle, fout, **kw)
         if self.learned_shortcut:
-            self.norm_s = SPADE(fin, norm_type, nhidden, **kw)
+            self.norm_s = SPADE(fin, norm_type, nhidden, group=group, **kw)
             self.conv_s = SNSphereConv(fin, fout, **kw)
 
     def forward(self, x: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
@@ -228,14 +232,16 @@ class SPADEGenerator(nn.Module):
     (sh, sw), 7 SPADE blocks with 5 nearest 2x upsamples, a SphereConv head,
     (tanh+1)*25 HDR range. With use_vae (upstream SPADE's --use_vae) the
     encoder gives (mu, logvar); train mode takes the reparameterized latent
-    z = mu + eps * exp(logvar / 2), eval mode z = mu.
+    z = mu + eps * exp(logvar / 2), eval mode z = mu. ``group`` (a
+    dist/mesh.py RankGroup) syncs the "syncbatch" norms over the ranks (the
+    JAX generator's ``axis_name``).
     """
 
     def __init__(self, ngf: int = 64, norm_type: str = "syncbatch",
                  num_upsampling_layers: str = "normal", crop_size: int = 256,
                  aspect_ratio: float = 2.0, use_vae: bool = False, label_nc: int = 3,
                  compute_dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, group=None):
         super().__init__()
         nf = ngf
         self.ngf = ngf
@@ -246,7 +252,10 @@ class SPADEGenerator(nn.Module):
         self.sh = round(self.sw / aspect_ratio)
         kw = dict(compute_dtype=compute_dtype, generator=generator)
         self.netE = ConvEncoder(ndf=nf, vae=use_vae, **kw)
-        block = lambda fin, fout: SPADEResnetBlock(fin, fout, norm_type, label_nc=label_nc, **kw)
+
+        def block(fin: int, fout: int) -> SPADEResnetBlock:
+            return SPADEResnetBlock(fin, fout, norm_type, label_nc=label_nc, group=group, **kw)
+
         self.head_0 = block(16 * nf, 16 * nf)
         self.G_middle_0 = block(16 * nf, 16 * nf)
         self.G_middle_1 = block(16 * nf, 16 * nf)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.hdr import TONEMAP_INPUT, Tonemap, read_hdr, resize_panorama
+from ..dist.mesh import shard_rows
 
 __all__ = ["RegressionDataset", "ProjectorDataset", "batched", "prefetch", "device_prefetch",
            "synthetic_regression_batch", "synthetic_projector_batch"]
@@ -119,8 +120,12 @@ class ProjectorDataset:
 
 
 def batched(dataset, batch_size: int, *, shuffle: bool = True, seed: int = 0,
-            drop_last: bool = True, epochs: int | None = None) -> Iterator[dict]:
+            drop_last: bool = True, epochs: int | None = None,
+            group=None) -> Iterator[dict]:
     """Collate dict samples into stacked NumPy batches (strings as lists).
+    With the ranks' ``group`` (a dist/mesh.py RankGroup) each batch is the
+    rank's rows [r·B/R, (r+1)·B/R) of the global batch, and only those
+    samples are read; B % R must be 0.
 
     The order depends on `seed` and the epoch only, so a run resumed with
     --resume starts again at epoch 0's first batch and the training CLIs
@@ -138,6 +143,7 @@ def batched(dataset, batch_size: int, *, shuffle: bool = True, seed: int = 0,
             idx = order[s : s + batch_size]
             if drop_last and len(idx) < batch_size:
                 continue
+            idx = idx[shard_rows(len(idx), group)]
             samples = [dataset[int(i)] for i in idx]
             batch = {}
             for k in samples[0]:

@@ -15,6 +15,11 @@ The port's own copy of emlight_tpu/train/loop.py:
   (core/hdr.py::resize_panorama), not PIL's;
 - ``profile_trace``: ``torch.profiler`` over a block, its Chrome trace
   written into a directory.
+
+In data-parallel training every rank runs the loop on the metrics averaged
+over the ranks (so ``NaNGuard`` stops every rank at the same step), and
+only rank 0 writes: the logger and the timer of the others are built
+with ``writer=False``.
 """
 
 from __future__ import annotations
@@ -36,16 +41,22 @@ __all__ = ["MetricsLogger", "IterationTimer", "NaNGuard", "summary_arrays", "ren
 
 
 class MetricsLogger:
-    """Append metric dicts to CSV and (optionally) stdout."""
+    """Append metric dicts to CSV and (optionally) stdout; with
+    writer=False (a rank but the first) neither."""
 
-    def __init__(self, out_dir: str, name: str = "metrics", echo_every: int = 10):
-        os.makedirs(out_dir, exist_ok=True)
+    def __init__(self, out_dir: str, name: str = "metrics", echo_every: int = 10,
+                 writer: bool = True):
+        self.writer = writer
+        if writer:
+            os.makedirs(out_dir, exist_ok=True)
         self.path = os.path.join(out_dir, f"{name}.csv")
         self.echo_every = echo_every
         self._keys: list[str] | None = None
         self._n = 0
 
     def log(self, step: int, metrics: dict, extra: dict | None = None) -> None:
+        if not self.writer:
+            return
         row = {"step": step, **{k: float(v) for k, v in metrics.items()}}
         if extra:
             row.update(extra)
@@ -72,11 +83,13 @@ class IterationTimer:
     launches. There it also keeps each step's device time (CUDA events
     around the step) in ``device_ms``. ``with timer(n):`` times n
     iterations that run as one block (--scan_steps): each is accounted the
-    block's time / n, as the JAX timer's ``add``.
+    block's time / n, as the JAX timer's ``add``. ``writer=False`` (a rank
+    but the first): ``record`` writes nothing.
     """
 
-    def __init__(self, out_dir: str, batch_size: int = 1, device=None):
+    def __init__(self, out_dir: str, batch_size: int = 1, device=None, writer: bool = True):
         self.path = os.path.join(out_dir, "iter.json")
+        self.writer = writer
         self.batch_size = batch_size
         self.sync = torch.device(device).type == "cuda" if device is not None else False
         self.epoch = 0
@@ -96,6 +109,8 @@ class IterationTimer:
         return self
 
     def record(self) -> None:
+        if not self.writer:
+            return
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         with open(self.path, "w") as f:
             json.dump({"epoch": self.epoch, "step": self.step}, f)

@@ -24,11 +24,22 @@ use_vae: the latent noise cannot follow ``jax.random``'s bits. Each step
 draws it on G's device from a torch.Generator seeded from the step, as the
 JAX steps fold the step into their keys: (0xEA, step) in the G and fused
 steps, (0xDA, step) in the D step; or takes it from the ``eps`` argument.
+
+Data-parallel training (dist/parallel.py): ``create_state(..., group)``
+syncs G's "syncbatch" norms over the ranks' group (a dist/mesh.py
+RankGroup), each step averages the gradients of the nets it updates over
+the ranks after its backward (clipping acts on the averages) and returns
+the metrics averaged over the ranks (the global batch's), and the
+use_vae noise is drawn for the global batch and sliced to the rank's rows.
+G's BatchNorm statistics and both nets' u, v stay equal on every rank
+without a collective: the statistics are the global batch's and the power
+iteration reads the weights only.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from collections.abc import Callable
 
 import numpy as np
@@ -36,6 +47,7 @@ import torch
 
 from ..config import ProjectorConfig
 from ..core.device import resolve_device
+from ..dist.mesh import all_reduce_mean_, mean_metrics, shard_rows
 from ..losses.gan import cosine_loss, feature_matching_loss, gan_loss, kld_loss
 from ..nn.discriminator import MultiscaleDiscriminator
 from ..nn.spade import SPADEGenerator
@@ -57,8 +69,10 @@ def compute_dtype(cfg: ProjectorConfig) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
 
 
-def make_models(cfg: ProjectorConfig, device=None, seed: int = 0) -> SPADEGenerator:
-    """The generator in eval mode on `device` (CUDA unless "cpu" is asked).
+def make_models(cfg: ProjectorConfig, device=None, seed: int = 0,
+                group=None) -> SPADEGenerator:
+    """The generator in eval mode on `device` (CUDA unless "cpu" is asked),
+    its "syncbatch" norms synced over `group` in training.
 
     Weights are drawn on the CPU from a torch.Generator seeded with `seed`,
     so one seed gives the same model on every device.
@@ -75,6 +89,7 @@ def make_models(cfg: ProjectorConfig, device=None, seed: int = 0) -> SPADEGenera
         label_nc=cfg.semantic_nc,
         compute_dtype=compute_dtype(cfg),
         generator=gen,
+        group=group,
     )
     return g.eval().to(dev)
 
@@ -114,8 +129,9 @@ def inference(generator: SPADEGenerator, batch: dict, cfg: ProjectorConfig) -> t
 
 @dataclasses.dataclass
 class ProjectorState:
-    """The two models, their Adam optimizers and the step counts. The
-    modules and optimizers are updated in place by the steps."""
+    """The two models, their Adam optimizers, the step counts and the ranks'
+    group (None on one device). The modules and optimizers are updated in
+    place by the steps."""
 
     cfg: ProjectorConfig
     g: SPADEGenerator
@@ -126,6 +142,7 @@ class ProjectorState:
     lr_d: Callable[[int], float]
     step: int = 0      # generator updates (the JAX state's step)
     d_step: int = 0    # discriminator updates
+    group: object = None
 
 
 def _lr_schedule(base_lr: float, cfg: ProjectorConfig,
@@ -143,12 +160,13 @@ def _lr_schedule(base_lr: float, cfg: ProjectorConfig,
 
 
 def create_state(cfg: ProjectorConfig, device=None, seed: int = 0,
-                 steps_per_epoch: int | None = None) -> ProjectorState:
+                 steps_per_epoch: int | None = None, group=None) -> ProjectorState:
     """G and D in train mode on `device` (CUDA unless "cpu" is asked), with
     the TTUR Adam pair: G at lr/2, D at lr*2, betas (beta1, beta2), eps 1e-8
     (optax.adam's). G's weights come from `seed`, D's from `seed + 1`.
-    With cfg.use_vae the encoder has the fc_mu and fc_var heads."""
-    g = make_models(cfg, device, seed).train()
+    With cfg.use_vae the encoder has the fc_mu and fc_var heads. ``group``
+    (a dist/mesh.py RankGroup): a rank's state of data-parallel training."""
+    g = make_models(cfg, device, seed, group).train()
     d = make_discriminator(cfg, device, seed + 1)
     betas = (cfg.beta1, cfg.beta2)
     lr_g = _lr_schedule(cfg.lr / 2, cfg, steps_per_epoch)
@@ -157,7 +175,7 @@ def create_state(cfg: ProjectorConfig, device=None, seed: int = 0,
         cfg=cfg, g=g, d=d,
         opt_g=torch.optim.Adam(g.parameters(), lr=lr_g(0), betas=betas, eps=1e-8),
         opt_d=torch.optim.Adam(d.parameters(), lr=lr_d(0), betas=betas, eps=1e-8),
-        lr_g=lr_g, lr_d=lr_d,
+        lr_g=lr_g, lr_d=lr_d, group=group,
     )
 
 
@@ -168,11 +186,16 @@ def _batch_on(batch: dict, dev: torch.device) -> dict:
 def vae_noise(state: ProjectorState, seed: int, b: int) -> torch.Tensor:
     """A use_vae step's latent noise: N(0, 1) of shape (b, 32 * ngf) on G's
     device, from a torch.Generator seeded from (seed, state.step) (mixed by
-    numpy's SeedSequence into the 32 bits the CPU generator reads)."""
+    numpy's SeedSequence into the 32 bits the CPU generator reads). Under
+    ``state.group`` b is the rank's rows: the noise is drawn for the global
+    batch and the rank's rows are kept, so R ranks draw what one device
+    does."""
     dev = next(state.g.parameters()).device
+    ranks = 1 if state.group is None else state.group.size
     mixed = np.random.SeedSequence([seed, state.step]).generate_state(1)[0]
     gen = torch.Generator(device=dev).manual_seed(int(mixed))
-    return torch.randn((b, 32 * state.cfg.ngf), generator=gen, device=dev)
+    eps = torch.randn((b * ranks, 32 * state.cfg.ngf), generator=gen, device=dev)
+    return eps[shard_rows(b * ranks, state.group)]
 
 
 def _run_d(state: ProjectorState, guide: torch.Tensor, fake: torch.Tensor, real: torch.Tensor):
@@ -232,8 +255,9 @@ def _discriminator_losses(state: ProjectorState, guide: torch.Tensor, fake: torc
     return d_fake, d_real, d_fake + d_real
 
 
-def _detached(metrics: dict) -> dict:
-    return {k: v.detach() for k, v in metrics.items()}
+def _detached(metrics: dict, group) -> dict:
+    """The step's metrics, detached, averaged over the ranks under a group."""
+    return mean_metrics({k: v.detach() for k, v in metrics.items()}, group)
 
 
 def generator_step(state: ProjectorState, batch: dict, vgg: VGG19Features | None = None,
@@ -256,9 +280,10 @@ def generator_step(state: ProjectorState, batch: dict, vgg: VGG19Features | None
     state.opt_g.zero_grad(set_to_none=True)
     fake, losses, total = _generator_losses(state, b, guide, vgg, eps)
     total.backward()
+    all_reduce_mean_((p.grad for p in g.parameters()), state.group)
     _update(state.opt_g, state.lr_g(state.step), g.parameters(), cfg.clip_grad_norm)
     state.step += 1
-    return _detached({**losses, "loss_G": total}), fake.detach()
+    return _detached({**losses, "loss_G": total}, state.group), fake.detach()
 
 
 def discriminator_step(state: ProjectorState, batch: dict,
@@ -281,9 +306,10 @@ def discriminator_step(state: ProjectorState, batch: dict,
     state.opt_d.zero_grad(set_to_none=True)
     d_fake, d_real, total = _discriminator_losses(state, guide, fake, b["warped"])
     total.backward()
+    all_reduce_mean_((p.grad for p in d.parameters()), state.group)
     _update(state.opt_d, state.lr_d(state.d_step), d.parameters(), cfg.clip_grad_norm)
     state.d_step += 1
-    return _detached({"D_Fake": d_fake, "D_real": d_real, "loss_D": total})
+    return _detached({"D_Fake": d_fake, "D_real": d_real, "loss_D": total}, state.group)
 
 
 def fused_gan_step(state: ProjectorState, batch: dict, vgg: VGG19Features | None = None,
@@ -318,12 +344,14 @@ def fused_gan_step(state: ProjectorState, batch: dict, vgg: VGG19Features | None
     fake = fake.detach()
     d_fake, d_real, d_total = _discriminator_losses(state, guide, fake, b["warped"])
     d_total.backward()
+    all_reduce_mean_((p.grad for p in itertools.chain(g.parameters(), d.parameters())),
+                     state.group)
     _update(state.opt_g, state.lr_g(state.step), g.parameters(), cfg.clip_grad_norm)
     _update(state.opt_d, state.lr_d(state.d_step), d.parameters(), cfg.clip_grad_norm)
     state.step += 1
     state.d_step += 1
     return _detached({**g_losses, "loss_G": g_total, "D_Fake": d_fake, "D_real": d_real,
-                      "loss_D": d_total}), fake
+                      "loss_D": d_total}, state.group), fake
 
 
 def scanned_fused_steps(state: ProjectorState, batches: dict,

@@ -18,6 +18,14 @@ nn/densenet_fast.py, train_apply with its block backward in training and
 buffer_apply at eval; "standard" is the DenseNet module's own graph
 (``standard_apply``), the one ``cfg.remat`` acts on. As in the JAX package,
 ``remat`` changes nothing under "buffer".
+
+Data-parallel training (dist/parallel.py): ``create_state(..., group)``
+builds the regressor with its BatchNorms synced over the ranks' group (a
+dist/mesh.py RankGroup), ``train_step`` averages the gradients over the
+ranks before clipping and the update, and ``loss_fn`` takes the Sinkhorn
+diameter over the global batch and scales the rank's EMD sum by the rank
+count, so that the averaged gradient is the global batch's sum
+(emlight_tpu/train/regression.py:143).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 
 from ..config import RegressionConfig
 from ..core.device import resolve_device
+from ..dist.mesh import all_reduce_mean_, mean_metrics
 from ..losses.sinkhorn import SamplesLoss
 from ..nn import densenet_fast as DF
 from ..nn.densenet import DenseNet, fold_eval_variables
@@ -42,11 +51,12 @@ HEADS = ("fc_dist", "fc_intensity", "fc_rgb_ratio", "fc_ambient")
 
 
 def make_model(cfg: RegressionConfig, device=None, seed: int = 0,
-               fold_bn: bool = False) -> DenseNet:
+               fold_bn: bool = False, group=None) -> DenseNet:
     """The regressor in eval mode on `device` (CUDA unless "cpu" is asked),
     computing in ``cfg.dtype`` (float32 parameters), its dense layers
     rematerialized in the standard train forward if ``cfg.remat``;
-    ``fold_bn`` builds the eval-only folded layout of ``fold_for_inference``.
+    ``fold_bn`` builds the eval-only folded layout of ``fold_for_inference``;
+    ``group`` syncs its BatchNorms over the ranks in training.
 
     Weights are drawn on the CPU from a torch.Generator seeded with `seed`,
     so one seed gives the same model on every device.
@@ -65,6 +75,7 @@ def make_model(cfg: RegressionConfig, device=None, seed: int = 0,
         dtype=getattr(torch, cfg.dtype),
         remat=cfg.remat,
         fold_bn=fold_bn,
+        group=group,
     )
     return model.eval().to(dev)
 
@@ -141,35 +152,39 @@ def predict(model: DenseNet, crop: torch.Tensor, apply_fn: Callable | None = Non
 @dataclasses.dataclass
 class RegressionState:
     """The model (its parameters and BatchNorm running statistics), Adam,
-    the step count and the forward (``apply_fn(model, crop, train)``).
-    ``train_step`` updates the first three in place."""
+    the step count, the forward (``apply_fn(model, crop, train)``) and the
+    ranks' group (None on one device). ``train_step`` updates the first
+    three in place."""
 
     cfg: RegressionConfig
     model: DenseNet
     opt: torch.optim.Adam
     step: int = 0
     apply_fn: Callable = standard_apply
+    group: object = None
 
 
-def create_state(cfg: RegressionConfig, device=None, seed: int = 0) -> RegressionState:
+def create_state(cfg: RegressionConfig, device=None, seed: int = 0,
+                 group=None) -> RegressionState:
     """make_model's regressor, Adam(cfg.lr, cfg.betas, eps 1e-8), the
     update optax.adam makes, and the forward ``cfg.train_forward`` names
     ("buffer": ``make_train_apply``; "standard": the module's graph).
     cfg.clip_grad_norm > 0 clips the global gradient norm before each
-    update (off by default, as in the reference)."""
+    update (off by default, as in the reference). ``group`` (a
+    dist/mesh.py RankGroup): a rank's state of data-parallel training."""
     if cfg.train_forward not in ("buffer", "standard"):
         raise ValueError(f"train_forward {cfg.train_forward!r}: 'buffer' or 'standard'")
-    model = make_model(cfg, device, seed)
+    model = make_model(cfg, device, seed, group=group)
     opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, betas=tuple(cfg.betas), eps=1e-8)
     apply_fn = make_train_apply(cfg) if cfg.train_forward == "buffer" else standard_apply
-    return RegressionState(cfg=cfg, model=model, opt=opt, apply_fn=apply_fn)
+    return RegressionState(cfg=cfg, model=model, opt=opt, apply_fn=apply_fn, group=group)
 
 
-def _make_sinkhorn(cfg: RegressionConfig) -> SamplesLoss:
+def _make_sinkhorn(cfg: RegressionConfig, group=None) -> SamplesLoss:
     s = cfg.sinkhorn
     return SamplesLoss("sinkhorn", p=s.p, blur=s.blur, scaling=s.scaling, diameter=s.diameter,
                        n_iters=s.n_iters, n_anchors=cfg.anchors.regression_anchors,
-                       backend=s.backend)
+                       backend=s.backend, group=group)
 
 
 def _batch_on(batch: dict, dev: torch.device) -> dict:
@@ -177,17 +192,21 @@ def _batch_on(batch: dict, dev: torch.device) -> dict:
 
 
 def loss_fn(model: DenseNet, batch: dict, cfg: RegressionConfig, train: bool,
-            apply_fn: Callable = standard_apply):
+            apply_fn: Callable = standard_apply, group=None):
     """Forward (``apply_fn(model, crop, train)``) + composite loss. batch:
     crop (B, H, W, 3), distribution (B, N), intensity (B,), rgb_ratio
-    (B, 3), ambient (B, 3). Returns (total, metrics, pred)."""
+    (B, 3), ambient (B, 3). Returns (total, metrics, pred). With the
+    ranks' ``group`` the batch is the rank's rows: the Sinkhorn diameter is
+    the global batch's and the EMD sum is scaled by the rank count (the
+    reference SUMS it over the batch, while every L2 term is a mean)."""
     b = _batch_on(batch, next(model.parameters()).device)
     pred = apply_fn(model, b["crop"], train=train)
-    emd = _make_sinkhorn(cfg)
+    emd = _make_sinkhorn(cfg, group)
+    emd_scale = 1 if group is None else group.size
     mse = lambda p, t: torch.mean((p - t) ** 2)  # noqa: E731
     metrics = {
         "dist_emloss": emd(pred["distribution"][..., None],
-                           b["distribution"][..., None]).sum() * cfg.w_emd,
+                           b["distribution"][..., None]).sum() * (cfg.w_emd * emd_scale),
         "dist_l2loss": mse(pred["distribution"], b["distribution"]) * cfg.w_dist_l2,
         "intensity_loss": mse(pred["intensity"][:, 0], b["intensity"]) * cfg.w_intensity,
         "rgb_loss": mse(pred["rgb_ratio"], b["rgb_ratio"]) * cfg.w_rgb,
@@ -201,11 +220,15 @@ def train_step(state: RegressionState, batch: dict) -> dict:
     """One Adam step on one batch. Returns the metrics ("loss" and the five
     terms; with cfg.log_grad_norms also "grad_norm" and "grad_norm_<head>" of
     the gradients before clipping) as detached 0-d tensors. The gradients
-    stay in the parameters' ``.grad`` after the update."""
+    stay in the parameters' ``.grad`` after the update. Under
+    ``state.group`` the batch is the rank's rows and the gradients are
+    averaged over the ranks before the norms, clipping and the update, and
+    the metrics are averaged over the ranks (the global batch's)."""
     cfg, model = state.cfg, state.model
     state.opt.zero_grad(set_to_none=True)
-    total, metrics, _ = loss_fn(model, batch, cfg, True, state.apply_fn)
+    total, metrics, _ = loss_fn(model, batch, cfg, True, state.apply_fn, state.group)
     total.backward()
+    all_reduce_mean_((p.grad for p in model.parameters()), state.group)
     metrics = {k: v.detach() for k, v in metrics.items()}
     if cfg.log_grad_norms:
         # the reference's gradient probes (panorama.py:41-64) as metrics
@@ -218,7 +241,7 @@ def train_step(state: RegressionState, batch: dict) -> dict:
         clip_by_global_norm(model.parameters(), cfg.clip_grad_norm)
     state.opt.step()
     state.step += 1
-    return metrics
+    return mean_metrics(metrics, state.group)
 
 
 @torch.no_grad()

@@ -13,6 +13,7 @@ import dataclasses
 import io
 import json
 import pickle
+import time
 
 import numpy as np
 import pytest
@@ -27,8 +28,10 @@ from emlight_tpu.core.exr import write_exr as jwrite_exr
 from emlight_tpu.train import checkpoint as jckpt
 from emlight_tpu.train import projector as P
 from emlight_tpu.train import regression as R
+from emlight_tpu_torch.cli import _common
 from emlight_tpu_torch.cli import infer as tinfer
 from emlight_tpu_torch.cli import test_regression as ttest_regression
+from emlight_tpu_torch.cli._common import spawn_ranks
 from emlight_tpu_torch.core.exr import read_exr
 from emlight_tpu_torch.core.hdr import TONEMAP_INPUT, TONEMAP_TEST, TONEMAP_VIZ, resize_panorama
 from emlight_tpu_torch.representation.splat import render_anchor_params
@@ -36,6 +39,7 @@ from emlight_tpu_torch.train import pipeline as TPL
 from emlight_tpu_torch.train import projector as TP
 from emlight_tpu_torch.train import regression as TR
 from emlight_tpu_torch.train.checkpoint import restore_generator, restore_regressor
+from torch_dist_ranks import one_rank_hangs, spawned_clis
 from torch_port_helpers import (  # noqa: F401 (the fixtures: autouse)
     jax_states,
     no_persistent_cache_writes,
@@ -239,14 +243,74 @@ def test_clis_raise_without_a_card(run, cli, monkeypatch):
     assert not (run["out"]["t_reg"] / "x").exists()
 
 
+@pytest.fixture(scope="module")
+def parallel(run):
+    """Both CLIs with --parallel on two gloo ranks spawned by the CLIs'
+    own spawn_ranks (what --parallel does outside torchrun when asked for
+    more than one rank), each rank running both command lines
+    (tests/torch_dist_ranks.py::spawned_clis): 5 crops in batches of 3,
+    so the first batch is padded to 4 (rank 1 serves crop 2 and a padded
+    copy of it) and the second splits 1 + 1. Returns the output
+    directories."""
+    out = {cli: run["out"]["t_reg"].parent / f"p_{cli}" for cli in ("infer", "test_regression")}
+    argvs = [("infer", run["infer_args"] + ["--out_dir", str(out["infer"]), "--device", "cpu"]),
+             ("test_regression", run["reg_args"] + ["--out_dir", str(out["test_regression"]),
+                                                     "--device", "cpu"])]
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("OMP_NUM_THREADS", "1")
+        spawn_ranks(spawned_clis, argvs, 2, "cpu", timeout_s=60, deadline_s=120)
+    return out
+
+
+def test_spawned_ranks_are_killed_past_the_timeout():
+    """Once one spawned rank has ended, the others get the collective
+    timeout: a rank still running past it is killed and spawn_ranks
+    raises, in seconds rather than at the hung rank's end."""
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="still ran 3 s after another had ended"):
+        spawn_ranks(one_rank_hangs, 600, 2, "cpu", timeout_s=3, deadline_s=60)
+    assert time.monotonic() - t0 < 60
+
+
+def test_parallel_spawns_the_ranks_it_is_asked_for(run, monkeypatch):
+    """Outside torchrun, --parallel with --device cpu spawns
+    $EMLIGHT_CPU_RANKS ranks, each running the CLI's main again (the
+    spawn itself: the `parallel` fixture); unset, it runs as one rank of
+    its own without spawning."""
+    calls = []
+    monkeypatch.setattr(_common, "spawn_ranks", lambda *a, **k: calls.append(a))
+    monkeypatch.setenv(_common.CPU_RANKS_ENV, "2")
+    argv = run["infer_args"] + ["--out_dir", str(run["out"]["t_reg"].parent / "x"),
+                                "--device", "cpu", "--parallel"]
+    tinfer.main(argv)
+    assert calls == [(tinfer.main, argv, 2, "cpu")]
+    assert _common.rank_count(True, "cpu") == 2
+    monkeypatch.delenv(_common.CPU_RANKS_ENV)
+    assert _common.rank_count(True, "cpu") == 1
+
+
 @pytest.mark.parametrize("cli", ["infer", "test_regression"])
-def test_parallel_exits_with_its_message(run, cli, capsys):
-    args = run["infer_args"] if cli == "infer" else run["reg_args"]
-    main = tinfer.main if cli == "infer" else ttest_regression.main
-    with pytest.raises(SystemExit) as exc:
-        main(args + ["--parallel", "--device", "cpu"])
-    assert exc.value.code == 2
-    assert 'ROADMAP.md §1, "Multi-GPU"' in capsys.readouterr().err
+def test_parallel_writes_what_the_serial_run_writes(run, parallel, cli):
+    """--parallel on two ranks writes the serial port run's files, each
+    crop once (the padded copy dropped): maps at the map bar, pickles at
+    the prediction bar, previews the uint8 TONEMAP_VIZ of their own map (or
+    at most one level from the serial run's env preview)."""
+    got, ref = parallel[cli], run["out"]["t_infer" if cli == "infer" else "t_reg"]
+    assert sorted(p.name for p in got.iterdir()) == sorted(p.name for p in ref.iterdir())
+    for n in sorted(CROPS):
+        para, want = _pickle(got / f"{n}.pickle"), _pickle(ref / f"{n}.pickle")
+        assert list(para) == list(want)
+        for k in want:
+            np.testing.assert_allclose(para[k], want[k], **PRED_BAR, err_msg=f"{n} {k}")
+        if cli == "infer":
+            env = read_exr(str(got / f"{n}.exr"))
+            np.testing.assert_allclose(env, read_exr(str(ref / f"{n}.exr")), **MAP_BAR,
+                                       err_msg=n)
+            np.testing.assert_array_equal(_png(got / f"{n}.png"),
+                                          (TONEMAP_VIZ(env)[0] * 255).astype(np.uint8))
+        else:
+            diff = _png(got / f"{n}_env.png").astype(int) - _png(ref / f"{n}_env.png")
+            assert np.abs(diff).max() <= 1, n
 
 
 def test_eval_apply_takes_only_standard(run, tmp_path):

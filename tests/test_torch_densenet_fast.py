@@ -225,11 +225,10 @@ def test_train_apply_matches_jax_f64(variables):
     statistics at tests/test_densenet_fast.py's 1e-10. Gradients within
     2e-7 of the largest: both packages round the features to f32 before the
     heads (the JAX package's DenseNet does, in f64 too), so the cotangent
-    there is rounded to f32 on its way back. The port's fc-bias gradient
-    equals the NumPy f32 rounding of the f64 cotangent bit for bit; the JAX
-    package's sits 6.0e-8 (relative) from it, one f32 rounding apart
-    (measured). Compared as JAX-layout f64 trees (the bridge's state dicts
-    are f32)."""
+    there is rounded to f32 on its way back, each head's apart and then
+    summed in f32 (nn/densenet.py::heads_f32; until the port cast per head
+    it summed first and sat 6.0e-8 from JAX, one f32 rounding, measured).
+    Compared as JAX-layout f64 trees (the bridge's state dicts are f32)."""
     params, stats, x = variables
     p64 = jax.tree.map(lambda a: a.astype(np.float64), params)
     # statistics away from 0 / 1, exact in f32 so the bridge carries them

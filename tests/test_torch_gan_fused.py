@@ -28,6 +28,12 @@ and step 2 again on a batch whose images are jittered by JITTER relative.
   Adam: equal bit for bit. A VGG run's train state is the default tree
   (the VGG weights live outside it in both packages): the JAX package
   restores the port's file into its create_state template, bit for bit.
+- Data-parallel: two gloo ranks (tests/torch_dist_ranks.py, started as
+  the fixture begins, joined with a deadline) take the G, D and fused
+  steps on one row of batch 1 each, from the JAX state's weights; their
+  averaged losses and gradients, fakes and state are held to JAX's step
+  1 on the whole batch under the same bars, and the two ranks' states
+  after an Adam step to each other, bit for bit.
 """
 
 import flax
@@ -50,6 +56,7 @@ from emlight_tpu_torch.train.jax_weights import (
 )
 from test_torch_projector_train import GRAD_FLOOR, GRAD_REL, LOSS_RTOL, STATE_TOL, TINY
 from test_torch_train_state import GRAD_SPREAD, JITTER, _leaves
+from torch_dist_ranks import start_ranks, wait_ranks
 from torch_port_helpers import (  # noqa: F401 (the fixtures: autouse)
     capture_tx,
     jax_projector_state,
@@ -59,6 +66,12 @@ from torch_port_helpers import (  # noqa: F401 (the fixtures: autouse)
 )
 
 STATS = (".mean", ".var", ".u", ".v")
+RANKS_DEADLINE_S = 150
+# the metrics of each step the ranks take
+STEP_METRICS = {"g": {"GAN", "GAN_Feat", "COS", "VGG", "loss_G"},
+                "d": {"D_Fake", "D_real", "loss_D"},
+                "fused": {"GAN", "GAN_Feat", "COS", "VGG", "loss_G", "D_Fake", "D_real",
+                          "loss_D"}}
 
 
 def _np(tree):
@@ -110,11 +123,27 @@ def _ratios(port: dict, ref: dict) -> dict:
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     s_adam = jax_projector_state(TINY)
+    b1, b2 = _batch(41), _batch(42)
+    # two ranks take the G, D and fused steps on b1's rows meanwhile
+    work = tmp_path_factory.mktemp("ranks")
+    procs = start_ranks(work, "gan", dict(
+        gan_cfg=port_projector_cfg(TINY), gan_batch=b1,
+        g_sd=generator_state_from_jax(_np(s_adam.g_params), _np(s_adam.g_stats)),
+        d_sd=discriminator_state_from_jax(_np(s_adam.d_params), _np(s_adam.d_stats))))
+    try:
+        out = _single(s_adam, b1, b2, tmp_path_factory)
+    finally:
+        ranks = wait_ranks(work, procs, RANKS_DEADLINE_S)
+    out["ranks"] = ranks
+    return out
+
+
+def _single(s_adam, b1, b2, tmp_path_factory) -> dict:
+    """The JAX steps and the port's on one device."""
     tx = capture_tx()
     s0 = s_adam.replace(tx_g=tx, tx_d=tx, g_opt=tx.init(s_adam.g_params),
                         d_opt=tx.init(s_adam.d_params))
     vgg_vars, vgg_apply = jvgg.random_vgg19_params(0), jvgg.VGG19Features().apply
-    b1, b2 = _batch(41), _batch(42)
 
     def jstep(s, b):
         return P.fused_gan_step(s, {k: jnp.asarray(v) for k, v in b.items()}, TINY, vgg_apply,
@@ -252,3 +281,56 @@ def test_vgg_run_state_is_the_default_tree(run):
     for k, a in got.items():
         assert a.dtype == mine[k].dtype and np.array_equal(a, mine[k]), "/".join(k)
     assert int(restored.step) == 2
+
+
+@pytest.mark.parametrize("step", ["g", "d", "fused"])
+def test_two_ranks_take_the_jax_step_on_the_whole_batch(run, step):
+    """Two gloo ranks (tests/torch_dist_ranks.py), one row of batch 1
+    each, from the JAX state's weights: the G step, the D step and the
+    fused step, each with VGG where it has the term, against the JAX
+    package's fused_gan_step on both rows (its G update is
+    generator_step's, its D update discriminator_step's at the pre-update
+    G: emlight_tpu/train/projector.py:299). The losses averaged over the
+    ranks at LOSS_RTOL, every averaged gradient leaf at GRAD_REL of its
+    largest (floored at GRAD_FLOOR of the net's), each rank's fake at its
+    row's map bar; after the fused step G's BatchNorm statistics and both
+    nets' u, v at STATE_TOL."""
+    ref_m = run["jax_metrics"][0]
+    ref_g, ref_d = _ref_grads(run["s1"])
+    refs = {"g": {"grads": ref_g}, "d": {"grads": ref_d},
+            "fused": {"g_grads": ref_g, "d_grads": ref_d}}[step]
+    s1 = run["s1"]
+    states = {"g_state": generator_state_from_jax(_np(s1.g_params), _np(s1.g_stats)),
+              "d_state": discriminator_state_from_jax(_np(s1.d_params), _np(s1.d_stats))}
+    for r, rank in enumerate(run["ranks"]):
+        got = rank[step]
+        assert set(got["metrics"]) == STEP_METRICS[step]
+        for k, v in got["metrics"].items():
+            np.testing.assert_allclose(v.item(), ref_m[k], rtol=LOSS_RTOL, err_msg=f"{r} {k}")
+        if "fake" in got:
+            np.testing.assert_allclose(got["fake"].numpy(), run["jax_fake"][r:r + 1],
+                                       rtol=1e-4, atol=5e-4)
+        for key, ref in refs.items():
+            ratios = _ratios(got[key], ref)
+            worst = max(ratios, key=ratios.get)
+            assert ratios[worst] <= GRAD_REL, (r, key, worst, ratios[worst])
+        for net, ref in states.items() if step == "fused" else ():
+            keys = [k for k in ref if k.endswith(STATS)]
+            assert keys
+            for k in keys:
+                np.testing.assert_allclose(got[net][k].numpy(), ref[k].numpy(), err_msg=k,
+                                           **STATE_TOL)
+
+
+def test_two_ranks_hold_one_state(run):
+    """After the fused step with Adam both ranks hold the same parameters,
+    BatchNorm statistics and u, v, bit for bit, with no collective on
+    them: the averaged gradients are equal, the statistics are the global
+    batch's, and the power iteration reads the weights only."""
+    a, b = (rk["fused"] for rk in run["ranks"])
+    for net in ("g_state", "d_state"):
+        assert set(a[net]) == set(b[net])
+        for n in a[net]:
+            assert torch.equal(a[net][n], b[net][n]), (net, n)
+    assert all(not torch.equal(a["g_before"][n], a["g_state"][n])
+               for n in a["g_state"] if n.endswith("kernel"))

@@ -31,7 +31,7 @@ from emlight_tpu_torch.train.jax_weights import (
     generator_state_from_jax,
 )
 from emlight_tpu_torch.train.optim import clip_by_global_norm
-from torch_port_helpers import capture_tx, port_projector_cfg
+from torch_port_helpers import capture_tx, jax_projector_state, port_projector_cfg
 
 TINY = dataclasses.replace(
     ProjectorConfig(), crop_size=64, ngf=8, ndf=8, batch_size=2,
@@ -62,7 +62,7 @@ def run():
     """Both sides' G step and D step; returns what the tests compare."""
     batch = j_batch(2, n_anchors=96, crop_size=32, env_hw=(32, 64), seed=1)
     tx = capture_tx()
-    s0 = P.create_state(jax.random.PRNGKey(0), TINY)
+    s0 = jax_projector_state(TINY, 0)  # create_state with its inits jitted at XLA level 0
     s0 = s0.replace(tx_g=tx, tx_d=tx, g_opt=tx.init(s0.g_params), d_opt=tx.init(s0.d_params))
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     s1, j_g_losses, j_fake = P.generator_step(s0, jbatch, TINY)

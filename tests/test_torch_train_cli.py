@@ -54,6 +54,7 @@ from emlight_tpu_torch.core.geometry import equirect_xyz_splat, steradian_map
 from emlight_tpu_torch.core.hdr import TONEMAP_VIZ
 from emlight_tpu_torch.train.checkpoint import read_checkpoint
 from test_torch_train_state import BARS, GRAD_SPREAD, JITTER, adam_bound
+from torch_dist_ranks import start_ranks, wait_ranks
 from torch_port_helpers import no_persistent_cache_writes, one_torch_thread  # noqa: F401
 
 N = 4
@@ -345,29 +346,156 @@ def test_eval_metrics_matches_jax(run):
     _stats_close(got, ref, "angular_err_deg", rtol=0, atol=1e-2)
 
 
-UNPORTED = [
-    ("train_regression", ["--parallel"], "Multi-GPU"),
-    ("train_projector", ["--parallel"], "Multi-GPU"),
-    ("test_projector", ["--parallel"], "Multi-GPU"),
-]
 MAINS = {"train_regression": ttrain_regression.main, "train_projector": ttrain_projector.main,
          "test_projector": ttest_projector.main, "eval_projector": teval_projector.main,
          "eval_metrics": teval_metrics.main}
+PARALLEL = ["train_regression", "train_projector", "train_projector --fused", "test_projector"]
+# The parallel runs against the serial ones take small Adam steps: at the
+# default learning rates a rounding-noise gradient leaf that steps the
+# other way on one side stirs the next steps' gradients (the GAN's f32
+# gradients are ill-conditioned after a step, ROADMAP.md §3: after 3
+# steps at lr 2e-4 D's Adam mu sat 0.42 of its largest element from the
+# serial run's, G's BatchNorm statistics 48x their bar; measured), which
+# tells nothing of the parallel path. At these rates the moments still
+# carry the steps' gradients and differ by the reduction order only. With
+# one row a rank that order moves them by up to 2.5e-4 of a leaf's
+# largest element (measured, G's conv biases before a BatchNorm, whose
+# gradient is rounding noise), past the port-vs-JAX gradient bar (2e-4),
+# so the moments here are held to PARALLEL_GRAD_REL: a rank that trained
+# on the wrong rows or skipped the all-reduce moves them by 1e-1 and more.
+# tests/test_torch_dist.py holds the steps themselves to the JAX bars.
+PARALLEL_LR = {"train_regression": 1e-6, "train_projector": 2e-6}
+PARALLEL_GRAD_REL = 1e-3
 
 
-@pytest.mark.parametrize("cli,flags,item", UNPORTED, ids=[" ".join(u[1]) + " " + u[0]
-                                                         for u in UNPORTED])
-def test_unported_flags_exit_with_their_roadmap_item(tmp_path, capsys, cli, flags, item):
-    """Each exits at parse time (argparse's code 2) naming its ROADMAP.md
-    item by title, before anything is written."""
-    need = (["--ckpt", "x.msgpack", "--data_root", str(tmp_path)]
-            if cli in ("test_projector", "eval_metrics") else
-            ["--synthetic", "4", "--out_dir", str(tmp_path / "run")])
-    with pytest.raises(SystemExit) as exc:
-        MAINS[cli](need + flags + ["--device", "cpu"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f'ROADMAP.md §1, "{item}"' in err, err
+@pytest.fixture(scope="module")
+def parallel(run):
+    """The command lines of PARALLEL with --parallel on two gloo ranks
+    (tests/torch_dist_ranks.py) and serially in this process meanwhile,
+    batch 2 (one row a rank) at PARALLEL_LR: train_regression for 2 epochs
+    of 2 steps from the 4-sample root (a summary and a checkpoint every 2
+    steps), train_projector, alternating and
+    --fused, for 3 steps on --synthetic 6 batches; test_projector on the
+    JAX run's final checkpoint in batches of 3 (the first padded to 4, the
+    second split 1 + padded 1), whose serial run is the `run` fixture's.
+    Returns the output directories {cli: {"serial": ..., "parallel":
+    ...}}."""
+    d = run["d"] / "parallel"
+    argvs, out = [], {}
+    for cli in PARALLEL:
+        main = cli.split()[0]
+        out[cli] = {who: d / f"{cli.replace(' --', '_')}_{who}" for who in ("serial", "parallel")}
+        if main == "test_projector":
+            flags = ["--ckpt", str(run["proj"]["jax"] / "checkpoints" / "latest.msgpack"),
+                     "--load_config", str(run["proj"]["jax"]), "--batch", "3",
+                     "--data_root", str(run["root"])]
+        elif main == "train_regression":
+            flags = REG_FLAGS + ["--epochs", "2", "--summary_every", "2", "--save_every", "2",
+                                 "--data_root", str(run["root"])]
+        else:
+            flags = PROJ_FLAGS + ["--synthetic", "6", "--epochs", "1", *cli.split()[1:]]
+        if main in PARALLEL_LR:
+            flags += ["--lr", str(PARALLEL_LR[main])]
+        argvs.append((main, flags + ["--device", "cpu", "--out_dir", str(out[cli]["parallel"])]))
+    procs = start_ranks(d / "ranks", "cli", {"argvs": argvs})
+    out["test_projector"]["serial"] = run["d"] / "tp_port"
+    try:
+        for (main, flags), cli in zip(argvs[:-1], PARALLEL[:-1]):
+            MAINS[main](flags[:-1] + [str(out[cli]["serial"])])
+    finally:
+        wait_ranks(d / "ranks", procs, 150)
+    return out
+
+
+@pytest.mark.parametrize("cli", PARALLEL)
+def test_parallel_writes_what_the_serial_run_writes(parallel, cli):
+    """--parallel on two ranks writes the serial port run's files. Training
+    (3 or 4 steps from one state, the gradients averaged over the ranks):
+    metrics.csv with the same columns and rows, the losses at
+    tests/test_torch_train_state.py's loss bar; iter.json and opt.json
+    (but --parallel) equal; the same previews; the final checkpoints at
+    test_final_checkpoints_agree's bars (the moments at
+    PARALLEL_GRAD_REL), parameters within two opposite Adam steps per step
+    taken. test_projector: each sample's map, once, at the map bar."""
+    got, ref = parallel[cli]["parallel"], parallel[cli]["serial"]
+    if cli == "test_projector":
+        names = sorted(p.name for p in ref.iterdir())
+        assert sorted(p.name for p in got.iterdir()) == names and len(names) == 2 * N
+        for n in (f"s{i}" for i in range(N)):
+            np.testing.assert_allclose(read_exr(str(got / f"{n}.exr")),
+                                       read_exr(str(ref / f"{n}.exr")), **MAP_BAR, err_msg=n)
+        return
+    kind = "reg" if cli == "train_regression" else "proj"
+    gr, rr = _rows(got / "metrics.csv"), _rows(ref / "metrics.csv")
+    assert gr[0] == rr[0] and len(gr) == len(rr) == {"reg": 5, "proj": 4}[kind]
+    timing = {"time_per_iter", "time_per_item", "iter_p50_s", "iter_p90_s"}
+    for a, b in zip(rr[1:], gr[1:]):
+        assert a[0] == b[0]
+        for col, x, y in zip(rr[0][1:], a[1:], b[1:]):
+            if col not in timing:
+                assert abs(float(y) - float(x)) <= 1e-4 * abs(float(x)), (a[0], col, y, x)
+    read = lambda path: json.loads(path.read_text())  # noqa: E731
+    assert read(got / "iter.json") == read(ref / "iter.json")
+    go, ro = read(got / "opt.json"), read(ref / "opt.json")
+    assert (go.pop("parallel"), ro.pop("parallel")) == (True, False)
+    assert go.pop("out_dir") != ro.pop("out_dir") and go == ro
+    previews = "summary" if kind == "reg" else "web"
+    assert sorted(p.name for p in (got / previews).iterdir()) == sorted(
+        p.name for p in (ref / previews).iterdir())
+    leaves = lambda root: dict(_leaves(read_checkpoint(  # noqa: E731
+        str(root / "checkpoints" / "latest.msgpack"))))
+    lr = PARALLEL_LR["train_projector"]
+    _checkpoints_close(leaves(ref), leaves(got), "regression" if kind == "reg" else "projector",
+                       steps=len(rr) - 1, lr={"params": PARALLEL_LR["train_regression"],
+                                              "g_params": lr / 2, "d_params": lr * 2})
+
+
+def _checkpoints_close(ref: dict, got: dict, which: str, steps: int, lr: dict) -> None:
+    """test_final_checkpoints_agree's bars for two runs from one state:
+    counts exact, Adam's moments at PARALLEL_GRAD_REL, statistics and u, v
+    at the state bar, parameters within two opposite Adam steps per step
+    at the runs' learning rates."""
+    assert set(ref) == set(got)
+    bars = BARS[which]
+
+    def moments_of(path):
+        return next((path[:path.index(m) + 1] for m in ("mu", "nu") if m in path), None)
+
+    scale = {}
+    for path, a in ref.items():
+        if moments_of(path):
+            scale[moments_of(path)] = max(scale.get(moments_of(path), 0.0), np.abs(a).max())
+    betas = {"params": (0.9, 0.999), "g_params": (0.0, 0.9), "d_params": (0.0, 0.9)}
+    for path, a in ref.items():
+        b, where = got[path], "/".join(path)
+        assert a.shape == b.shape and a.dtype == b.dtype, where
+        if path[-1] in ("count", "step"):
+            np.testing.assert_array_equal(b, a, err_msg=where)
+        elif moments_of(path):
+            floor = max(np.abs(a).max(), bars["grad_floor"] * scale[moments_of(path)])
+            assert np.abs(b - a).max() <= PARALLEL_GRAD_REL * floor, where
+        elif path[-1] in ("mean", "var", "u", "v"):
+            np.testing.assert_allclose(b, a, **bars["state"], err_msg=where)
+        else:
+            b1, b2 = betas[path[0]]
+            cap = sum(2 * lr[path[0]] * adam_bound(b1, b2, s)
+                      for s in range(1, steps + 1)) * (1 + 1e-5)
+            assert np.abs(b - a).max() <= cap, (where, np.abs(b - a).max(), cap)
+
+
+def test_scan_steps_with_parallel_exits_with_the_jax_message(tmp_path, capsys):
+    """As the JAX CLI (emlight_tpu/cli/train_projector.py:154), before
+    anything is written; and a batch that does not split over the ranks
+    exits naming both."""
+    with pytest.raises(SystemExit, match="--scan_steps runs single-chip; drop --parallel"):
+        ttrain_projector.main(["--synthetic", "4", "--out_dir", str(tmp_path / "run"),
+                               "--scan_steps", "2", "--parallel", "--device", "cpu"])
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv("WORLD_SIZE", "2")
+        for cli in ("train_regression", "train_projector"):
+            with pytest.raises(SystemExit, match="--batch_size 3 does not split over the 2"):
+                MAINS[cli](["--synthetic", "4", "--out_dir", str(tmp_path / "run"),
+                            "--batch_size", "3", "--parallel", "--device", "cpu"])
     assert not (tmp_path / "run").exists()
 
 

@@ -1,0 +1,257 @@
+"""One rank of a data-parallel group of the port on the CPU, for the tests.
+
+    python tests/torch_dist_ranks.py WORK JOB
+
+runs as rank $RANK of $WORLD_SIZE: it joins a gloo group whose FileStore
+is WORK/store (no TCP port, so parallel test workers cannot collide), with
+one intra-op thread and a 60 s timeout on every collective, runs JOB on
+the inputs the test left in WORK/inputs.pickle, and writes what the test
+compares into WORK/rank{RANK}.pickle. JOBs:
+
+- ``checks``: tests/test_torch_dist.py's multi-rank checks (BatchNorm
+  over the group, the Sinkhorn diameter, the regression step on both
+  routes in float64, the serving functions);
+- ``gan``: tests/test_torch_gan_fused.py's (the G, D and fused steps with
+  VGG);
+- ``cli``: each command line of inputs["argvs"] through its CLI's main
+  with --parallel, inside this group.
+
+``start_ranks`` and ``wait_ranks`` are the test side: they start the
+ranks with torchrun's environment and join them with a deadline.
+``spawned_clis`` and ``one_rank_hangs`` are ``main``s for
+emlight_tpu_torch/cli/_common.py's ``spawn_ranks``: each spawned rank runs
+``run_cli``'s command lines, or rank 1 hangs.
+"""
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+TIMEOUT_S = 60  # every collective; a rank that dies fails the others this fast
+
+
+def start_ranks(work: Path, job: str, inputs: dict, world: int = 2) -> list:
+    """Write the inputs and start `world` ranks running `job` in the
+    background; returns their Popen handles (for ``wait_ranks``)."""
+    work.mkdir(parents=True, exist_ok=True)
+    with open(work / "inputs.pickle", "wb") as f:
+        pickle.dump(inputs, f)
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join([str(HERE.parent), os.environ.get("PYTHONPATH", "")]))
+        log = open(work / f"rank{rank}.log", "w")
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__)), str(work), job],
+                                      env=env, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def wait_ranks(work: Path, procs: list, deadline_s: float) -> list:
+    """Join the ranks; past the deadline kill them all. Raises unless every
+    rank exited 0; returns each rank's results."""
+    end = time.monotonic() + deadline_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.0, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    logs = "\n".join(f"-- rank {r} (exit {p.returncode}):\n" + (work / f"rank{r}.log").read_text()
+                     for r, p in enumerate(procs))
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(f"a rank failed or passed the {deadline_s} s deadline\n{logs}")
+    out = []
+    for r in range(len(procs)):
+        with open(work / f"rank{r}.pickle", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+# -- the rank side ------------------------------------------------------------------
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _state(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def check_batchnorm(inp, group, mesh):
+    """BatchNorm over the group on the rank's rows: outputs, the running
+    statistics, the input's gradient and the parameters' local parts."""
+    import torch
+
+    from emlight_tpu_torch.nn.layers import BatchNorm
+
+    rows = mesh.shard_rows(len(inp["x"]), group)
+    bn = BatchNorm(inp["x"].shape[-1], affine=True, group=group).double().train()
+    bn.load_state_dict(inp["bn"])
+    x = inp["x"][rows].clone().requires_grad_(True)
+    y = bn(x)
+    (y * inp["w"][rows]).sum().backward()
+    return dict(y=y.detach(), x_grad=x.grad, state=_state(bn),
+                p_grad={n: p.grad.clone() for n, p in bn.named_parameters()})
+
+
+def check_sinkhorn(inp, group, mesh):
+    """The data diameter over the group: the rank's divergences."""
+    from emlight_tpu_torch.losses.sinkhorn import SamplesLoss
+
+    rows = mesh.shard_rows(len(inp["sx"]), group)
+    loss = SamplesLoss("sinkhorn", blur=0.025, n_iters=3, group=group)
+    return loss(inp["sx"][rows], inp["sy"][rows])
+
+
+def check_regression(inp, group, mesh):
+    """One train_step per route in float64 (Adam at lr 0: the gradients
+    stay in .grad and the parameters where they were): the averaged
+    gradients, metrics and running statistics."""
+    import dataclasses
+
+    import torch
+
+    from emlight_tpu_torch.dist.parallel import make_parallel_regression_step
+    from emlight_tpu_torch.nn.densenet import DenseNet
+    from emlight_tpu_torch.train import regression as TR
+
+    out = {}
+    batch = mesh.shard_batch(inp["reg_batch"], group)
+    for route in ("buffer", "standard"):
+        cfg = dataclasses.replace(inp["reg_cfg"], train_forward=route)
+        model = DenseNet(block_config=cfg.block_config, n_anchors=cfg.anchors.regression_anchors,
+                         input_hw=(cfg.crop_h, cfg.crop_w), dtype=torch.float64,
+                         group=group).double()
+        model.load_state_dict(inp["reg_sd"])
+        state = TR.RegressionState(
+            cfg=cfg, model=model, opt=torch.optim.Adam(model.parameters(), lr=0.0),
+            apply_fn=TR.make_train_apply(cfg) if route == "buffer" else TR.standard_apply,
+            group=group)
+        metrics = make_parallel_regression_step(group)(state, batch)
+        out[route] = dict(grads=_grads(model), metrics=metrics, state=_state(model))
+    return out
+
+
+def check_gan(inp, group, mesh):
+    """tests/test_torch_gan_fused.py's multi-rank checks: from the test's
+    weights (inputs g_sd, d_sd) on the rank's rows of one batch, with VGG
+    (random_vgg19_params(0)), the G step and the D step at lr 0 and the
+    fused step with Adam at lr 1e-3, each from those weights: the
+    gradients, averaged metrics and fakes of each, the states after the
+    fused step, and G's weights before it."""
+    import dataclasses
+
+    from emlight_tpu_torch.dist.parallel import (make_parallel_fused_step,
+                                                 make_parallel_projector_steps)
+    from emlight_tpu_torch.nn.vgg import VGG19Features, random_vgg19_params
+    from emlight_tpu_torch.train import projector as TP
+
+    vgg = VGG19Features(random_vgg19_params(0), device="cpu")
+    g_step, d_step = make_parallel_projector_steps(group, vgg)
+    fused = make_parallel_fused_step(group, vgg)
+    batch = mesh.shard_batch(inp["gan_batch"], group)
+
+    def fresh():
+        state = TP.create_state(dataclasses.replace(inp["gan_cfg"], lr=0.0), device="cpu",
+                                group=group)
+        state.g.load_state_dict(inp["g_sd"], strict=True)
+        state.d.load_state_dict(inp["d_sd"], strict=True)
+        return state
+
+    out = {}
+    state = fresh()
+    m, fake = g_step(state, batch)
+    out["g"] = dict(metrics=m, fake=fake, grads=_grads(state.g))
+    state = fresh()
+    out["d"] = dict(metrics=d_step(state, batch), grads=_grads(state.d))
+    state = fresh()
+    before = _state(state.g)
+    state.lr_g = state.lr_d = lambda step: 1e-3
+    m, fake = fused(state, batch)
+    out["fused"] = dict(metrics=m, fake=fake, g_grads=_grads(state.g), d_grads=_grads(state.d),
+                        g_state=_state(state.g), d_state=_state(state.d), g_before=before)
+    return out
+
+
+def check_serving(inp, group, mesh):
+    """The serving functions on a ragged global batch of 3: the rows each
+    rank served and their outputs."""
+    from emlight_tpu_torch.dist import parallel as DP
+    from emlight_tpu_torch.train import projector as TP
+    from emlight_tpu_torch.train import regression as TR
+
+    reg = TR.make_model(inp["reg_cfg"], device="cpu", seed=3)
+    gen = TP.make_models(inp["gan_cfg"], device="cpu", seed=4)
+    rows, heads = DP.make_parallel_predict(inp["reg_cfg"], group)(reg, inp["crop_reg"])
+    rows_i, env_i = DP.make_parallel_inference(inp["gan_cfg"], group)(gen, inp["gan_serve"])
+    rows_p, env_p, pred_p = DP.make_parallel_pipeline(inp["reg_cfg"], inp["gan_cfg"], group)(
+        reg, gen, inp["crop_reg"], inp["crop_proj"], "cpu")
+    return dict(predict=(rows, heads), inference=(rows_i, env_i),
+                pipeline=(rows_p, env_p, pred_p))
+
+
+def run_cli(inp, group, mesh):
+    import importlib
+
+    for cli, argv in inp["argvs"]:
+        importlib.import_module(f"emlight_tpu_torch.cli.{cli}").main(argv + ["--parallel"])
+    return {}
+
+
+def one_rank_hangs(seconds: float) -> str:
+    """A spawned rank's work for the straggler check: rank 1 sleeps
+    `seconds`, rank 0 returns at once."""
+    if os.environ["RANK"] == "1":
+        time.sleep(seconds)
+    return "rank 0 done"
+
+
+def spawned_clis(argvs: list) -> None:
+    """A spawned rank's work: each (cli, argv) of `argvs` through its CLI's
+    main with --parallel, in the group spawn_ranks joined, one intra-op
+    thread."""
+    import torch
+
+    torch.set_num_threads(1)
+    run_cli({"argvs": argvs}, None, None)
+
+
+def main(work: str, job: str) -> None:
+    import torch
+
+    torch.set_num_threads(1)
+    from emlight_tpu_torch.dist import mesh
+
+    work = Path(work)
+    with open(work / "inputs.pickle", "rb") as f:
+        inp = pickle.load(f)
+    group, created = mesh.join(torch.device("cpu"), f"file://{work / 'store'}",
+                               timeout_s=TIMEOUT_S)
+    try:
+        if job == "checks":
+            out = {name: fn(inp, group, mesh) for name, fn in (
+                ("bn", check_batchnorm), ("sinkhorn", check_sinkhorn),
+                ("regression", check_regression), ("serving", check_serving))}
+        elif job == "gan":
+            out = check_gan(inp, group, mesh)
+        else:
+            out = run_cli(inp, group, mesh)
+        mesh.barrier(group)
+    finally:
+        mesh.leave(created)
+    with open(work / f"rank{group.rank}.pickle", "wb") as f:
+        pickle.dump(out, f)
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:3])

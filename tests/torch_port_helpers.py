@@ -5,7 +5,9 @@ config, a fixture that runs a
 module's torch work on one thread, the NumPy emulation of the tensor-core
 kernels' f32 products (3xTF32), and of B6's and B5's U GEMM and gather."""
 
+import contextlib
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -34,33 +36,82 @@ def randomize_stats(tree, rng):
     return out
 
 
-def jax_generator_variables(cfg, seed: int):
-    """The generator half of P.create_state(PRNGKey(seed), cfg): the same
-    model and init call, jitted at XLA opt level 0 (P.create_state inits
-    eagerly on the CPU, about 30 s per config, and the discriminator too).
-    Returns (g_apply, params, stats) with NumPy leaves and randomized
-    BatchNorm running statistics."""
+_INITS: dict = {}
+
+
+def _arg_key(a):
+    """A hashable key of a flax init's arguments (arrays by value)."""
+    if isinstance(a, dict):
+        return tuple((k, _arg_key(v)) for k, v in sorted(a.items()))
+    if isinstance(a, (tuple, list)):
+        return tuple(_arg_key(v) for v in a)
+    arr = np.asarray(a)
+    return arr.shape, str(arr.dtype), arr.tobytes()
+
+
+@contextlib.contextmanager
+def _unwritten():
+    """Compiles inside write no executable to the suite's persistent
+    compilation cache (tests/conftest.py); see no_persistent_cache_writes."""
+    key = "jax_persistent_cache_min_compile_time_secs"
+    old = getattr(jax.config, key)
+    jax.config.update(key, float("inf"))
+    try:
+        yield
+    finally:
+        jax.config.update(key, old)
+
+
+def init0(init_fn, *args):
+    """R.run_init's job, jitted at XLA opt level 0, and done once per module
+    and arguments in a process: create_state built twice with configs that
+    differ in the optimizer only (--clip_grad_norm) inits once. The
+    variables are JAX arrays, which no caller can change. The compile
+    writes no cache entry (a one-off init in any importing module)."""
+    key = (repr(init_fn.func.__self__), tuple(sorted(init_fn.keywords.items())), _arg_key(args))
+    if key not in _INITS:
+        with _unwritten():
+            _INITS[key] = jit0(init_fn)(*args)
+    return _INITS[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _generator_variables(cfg, seed: int):
     g, _ = P.make_models(cfg)
     env_h, env_w = cfg.crop_size // 2, cfg.crop_size
     guide = jnp.zeros((1, env_h, env_w, 3))
     crop = jnp.zeros((1, cfg.crop_size // 2, cfg.crop_size // 2, 3))
     kg, _ = jax.random.split(jax.random.PRNGKey(seed))
-    if cfg.use_vae:
-        kg1, kg2 = jax.random.split(kg)
-        gv = jit0(lambda a, b: g.init({"params": a, "vae": b}, guide, crop, train=True))(kg1, kg2)
-    else:
-        gv = jit0(lambda k: g.init(k, guide, crop, train=True))(kg)
-    gv = jax.tree.map(np.asarray, gv)
+    with _unwritten():
+        if cfg.use_vae:
+            kg1, kg2 = jax.random.split(kg)
+            gv = jit0(lambda a, b: g.init({"params": a, "vae": b}, guide, crop, train=True))(
+                kg1, kg2)
+        else:
+            gv = jit0(lambda k: g.init(k, guide, crop, train=True))(kg)
+    return g.apply, jax.tree.map(np.asarray, gv)
+
+
+def jax_generator_variables(cfg, seed: int):
+    """The generator half of P.create_state(PRNGKey(seed), cfg): the same
+    model and init call, jitted at XLA opt level 0 (P.create_state inits
+    eagerly on the CPU, about 30 s per config, and the discriminator too).
+    Returns (g_apply, params, stats) with NumPy leaves and randomized
+    BatchNorm running statistics. The init runs once per (cfg, seed) in a
+    process; each call returns its own copies."""
+    g_apply, gv = _generator_variables(cfg, seed)
+    gv = jax.tree.map(np.copy, gv)
     params = gv.pop("params")
     gv["batch_stats"] = randomize_stats(gv["batch_stats"], np.random.default_rng(seed))
-    return g.apply, params, gv
+    return g_apply, params, gv
 
 
 def jax_projector_state(cfg, seed: int = 0):
     """P.create_state(PRNGKey(seed), cfg) with its inits jitted at XLA
-    opt level 0 (eagerly they take about 30 s at the TINY config)."""
+    opt level 0 (eagerly they take about 30 s at the TINY config), each
+    once per process (init0)."""
     with pytest.MonkeyPatch.context() as m:
-        m.setattr(R, "run_init", lambda init_fn, *args: jit0(init_fn)(*args))
+        m.setattr(R, "run_init", init0)
         return P.create_state(jax.random.PRNGKey(seed), cfg)
 
 
@@ -81,9 +132,10 @@ def jax_states(reg_cfg, proj_cfg):
     runs them eagerly on the CPU: 35 s against 11 s for the ngf-4
     ProjectorState) and every BatchNorm running statistic randomized, the
     regressor's and the generator's (fresh ones are 0 / 1); the generator's
-    spectral u and v are the init's random vectors."""
+    spectral u and v are the init's random vectors. Each init runs once per
+    process (init0)."""
     with pytest.MonkeyPatch.context() as m:
-        m.setattr(R, "run_init", lambda init_fn, *args: jit0(init_fn)(*args))
+        m.setattr(R, "run_init", init0)
         reg_state = R.create_state(jax.random.PRNGKey(0), reg_cfg)
         proj_state = P.create_state(jax.random.PRNGKey(1), proj_cfg)
     rng = np.random.default_rng(0)
@@ -132,11 +184,8 @@ def no_persistent_cache_writes():
     by tests/test_torch_cli.py, made tests/test_gspmd_isolated.py's
     8-device child stall (XLA:CPU, 2 runs of 2), and the same child passes
     with the cache as it was without that entry (1 run of 1)."""
-    key = "jax_persistent_cache_min_compile_time_secs"
-    old = getattr(jax.config, key)
-    jax.config.update(key, float("inf"))
-    yield
-    jax.config.update(key, old)
+    with _unwritten():
+        yield
 
 
 def tf32(a: np.ndarray) -> np.ndarray:
