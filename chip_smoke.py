@@ -15,8 +15,10 @@ training CLIs (cli.train_regression, cli.train_projector with --resume,
 cli.test_projector, cli.eval_projector, cli.eval_metrics), extracts anchor
 GT from panorama files (cli.extract_distribution), runs training and
 serving data-parallel (--parallel: one rank at world size 1 on NCCL, two
-ranks on the card over gloo), and holds every hand-written kernel against
-its plain PyTorch version. The regressor runs
+ranks on the card over gloo), drives the rest of the single-card surface
+(the SphereCNN demo, reference-.pth parity, needlet GT, the
+spherical-Gaussian fit and the small tools), and holds every hand-written
+kernel against its plain PyTorch version. The regressor runs
 as the JAX package runs it by default: the concat-free buffer forwards
 (nn/densenet_fast.py) in serving and training. Phases, each of which raises
 on failure:
@@ -132,11 +134,27 @@ on failure:
             figures (gloo through the host, one shared card); (c) the same
             over NCCL across cards where there are two or more, else
             logged as skipped
+16c. surface the rest of the single-card surface (run_surface): (a) the
+            SphereCNN demo at 60x60, batch 32: B1, B4 and B6 against their
+            plain versions at the demo's shapes (f32 with TF32 off, bf16)
+            and timed beside their bounds, SphereNet steps with every
+            kernel's launches asserted per step (B1 2, B4 2, B6 1), one
+            profiled, cli.sphere_demo --train 200 (accuracy above 0.3);
+            (b) cli.verify_parity on full-size random reference .pth files
+            (DenseNet-BC (16,16,16), generator ngf 64, discriminator ndf
+            64), each within 1e-3, B1 44 around the generator, B1 4 and B2
+            6 around the discriminator; (c) cli.needlets_gt --jmax 2 and 3
+            on 16 of phase 16's panoramas, card against CPU; (d)
+            fit_spherical_gaussians (3 lights, 500 steps) under torch.cuda's
+            sync debug mode "error"; (e) image_sinkhorn card vs CPU,
+            cli.preview and cli.modify_pickles on phase 16's files
 17. kernels one JSON line with every ported kernel, each with its bound on
             the CUDA cores (bound_ms) and on the tensor cores (tc_bound_ms)
             and its launches in phase 15 (tcli_launches; B7's in serving,
             serving_launches; B1-B6's in phase 9b, gan_launches, and per
-            fused step, fused_step_launches)
+            fused step, fused_step_launches; phase 16c's sphere_demo
+            --train 200 and verify_parity runs, demo_launches and
+            parity_launches)
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 run from a directory without the package beside it, it exits non-zero and
@@ -2031,7 +2049,8 @@ def run_extract(torch, np, dev, seed: int, smi) -> dict:
     thread) and the card's extraction ms per batch (CUDA events); and, on
     one batch on the card, extract_anchors_batch, its per-anchor sums as the
     port's index_add_ and as the one-hot matmul in full float32 the JAX
-    package computes."""
+    package computes. Leaves the panoramas and the second run's pickles
+    for phase 16c (out["files"])."""
     import pickle
     import shutil
 
@@ -2112,7 +2131,9 @@ def run_extract(torch, np, dev, seed: int, smi) -> dict:
         f"{worst:.3e} of the leaf's scale (rtol 1e-5); index_add_ sums equal the matmul's "
         f"(rtol 1e-5); dataset written in {write_s:.1f} s; phase took "
         f"{time.perf_counter() - t_phase:.1f} s")
-    shutil.rmtree(work, ignore_errors=True)
+    # phase 16c reads these panoramas and pickles again, then removes them
+    out["files"] = {"work": work, "warped": hdr_dir, "pickles": os.path.join(work, "pkl1"),
+                    "names": names}
     return out
 
 
@@ -2460,6 +2481,415 @@ def run_dist(torch, np, dev, seed: int, smi, cli_files: dict, tcli_files: dict) 
     return out
 
 
+# phase 16c: the SphereCNN demo's square maps at its default batch; the
+# kernels a demo training step launches (conv1 60x60 1 -> 32 and conv2 30x30
+# 32 -> 64 forward, both dK, conv2's dx on B6: conv1's input needs none)
+DEMO_BATCH, DEMO_HW, DEMO_TRAIN, DEMO_TIMED = 32, (60, 60), 200, 10
+EXPECTED_DEMO_STEP = {"sphere_conv_s1": 2, "sphere_conv_s2": 0, "sphere_conv_dx_s1": 0,
+                      "sphere_conv_dx_s1_triple": 1, "sphere_conv_dk": 2,
+                      "sphere_conv_dx_s2": 0}
+# (B, H, W, Cin, Cout) of the demo's two convs; B6 runs conv2's dx
+DEMO_CONVS = [(DEMO_BATCH, 60, 60, 1, 32), (DEMO_BATCH, 30, 30, 32, 64)]
+NEEDLET_PANOS, FIT_STEPS, FIT_CHECKED = 16, 500, 10
+DEMO_ACC_BAR = 0.3  # sphere_demo --train's last accuracy: well above 0.1, chance
+# verify_parity's launches at full size: the generator's forward; each of
+# the discriminator's two scales runs 3 stride-2 and 2 stride-1 convs
+EXPECTED_PARITY = {"generator": {"sphere_conv_s1": LAUNCHES_PER_FORWARD},
+                   "discriminator": {"sphere_conv_s1": 4, "sphere_conv_s2": 6},
+                   "regression": {}}
+
+
+def sparse_mismatch_ok(np, got, ref, dense, pipe, rtol: float = 1e-5) -> int:
+    """Two sparsified needlet coefficient arrays (C, 3) against each other at
+    rtol of ref's largest coefficient, where a coefficient may be kept on one
+    side and zeroed on the other only if its band energy lies within rtol
+    (relative) of the band's threshold, computed from `dense` (the same
+    panorama's unsparsified coefficients). Returns the count of such
+    threshold flips; raises on any other difference."""
+    bad = np.abs(got - ref) > rtol * np.abs(ref).max()
+    flips = 0
+    for sl, pct in zip(pipe.slices, pipe.cfg.sparsity_percentiles):
+        energy = np.abs(dense[sl]).sum(-1)
+        thre = np.percentile(energy, pct)
+        rows = np.nonzero(bad[sl].any(-1))[0]
+        near = np.abs(energy[rows] - thre) <= rtol * max(thre, 1e-30)
+        if not near.all():
+            raise AssertionError(f"needlet coefficients differ away from the band's threshold "
+                                 f"at {sl.start + rows[~near]}")
+        flips += len(rows)
+    return flips
+
+
+def run_surface(torch, np, dev, seed: int, smi, extract_files: dict) -> dict:
+    """Phase 16c: the rest of the single-card surface.
+
+    (a) the SphereCNN demo at 60x60, batch 32, synthetic digits: B1, B4
+    and B6 against their plain versions at the demo's shapes (f32 with TF32
+    off, and bf16) and timed beside their bounds (f32); DEMO_TIMED training
+    steps with every kernel's launches read around each (EXPECTED_DEMO_STEP)
+    and timed (CUDA events), one more under the profiler; then
+    cli.sphere_demo --train 200 (launches read around the run, accuracy
+    above 0.3). (b) cli.verify_parity at full size on random-weight
+    reference .pth files: DenseNet-BC (16,16,16) with 96 anchors, the
+    generator at ngf 64 / crop 256, the discriminator at ndf 64, num_d 2,
+    n_layers 4; each within 1e-3; B1's launches around the generator (44),
+    B1's and B2's around the discriminator. (c) cli.needlets_gt on
+    NEEDLET_PANOS of phase 16's panoramas at jmax 2 (sparsified) and 3
+    (dense), twice on the card (cold, then warm) and once on the CPU, the
+    card's .npy files against the CPU's; basis seconds, project ms,
+    panoramas/s. (d) fit_spherical_gaussians, 3 lights, 500
+    steps at 128x256 under torch.cuda's sync debug mode "error"; the loss
+    falls, the first FIT_CHECKED losses within 1e-4 of the CPU's. (e)
+    image_sinkhorn card vs CPU; cli.preview and cli.modify_pickles on phase
+    16's files. Removes phase 16's files."""
+    import contextlib
+    import io
+    import pickle
+    import re
+    import shutil
+
+    from emlight_tpu_torch.cli import modify_pickles as cli_modify
+    from emlight_tpu_torch.cli import needlets_gt as cli_needlets
+    from emlight_tpu_torch.cli import preview as cli_preview
+    from emlight_tpu_torch.cli import sphere_demo as cli_demo
+    from emlight_tpu_torch.cli import verify_parity as cli_parity
+    from emlight_tpu_torch.config import NeedletsConfig
+    from emlight_tpu_torch.core.geometry import sphere_points
+    from emlight_tpu_torch.core.hdr import TONEMAP_VIZ, read_hdr
+    from emlight_tpu_torch.losses.image_ot import image_sinkhorn
+    from emlight_tpu_torch.needlets import NeedletPipeline
+    from emlight_tpu_torch.nn import sphere_conv_kernel as SK
+    from emlight_tpu_torch.nn.sphere_conv import sphere_conv_plain
+    from emlight_tpu_torch.nn.sphere_conv_vjp import dk_plain, dx_plain, inverse_tables
+    from emlight_tpu_torch.nn.sphere_demo import OmniDigits, synthetic_digits
+    from emlight_tpu_torch.representation import fit as FIT
+    from emlight_tpu_torch.representation.splat import render_sg
+    from emlight_tpu_torch.train import torch_ref as TR
+
+    t_phase = time.perf_counter()
+    names = list(EXPECTED_DEMO_STEP)
+    wrappers = {n: getattr(SK, n) for n in names}
+    work = os.path.join(HERE, "build", "surface_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out: dict = {}
+
+    def counted(fn):
+        """fn() with every kernel's count set to 0 just before, read after."""
+        torch.cuda.synchronize()
+        for w_ in wrappers.values():
+            w_.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {n: w_.launches for n, w_ in wrappers.items()}
+
+    def quiet(main, argv):
+        """A CLI's main with its stdout captured: (return value, lines)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        return rc, buf.getvalue().splitlines()
+
+    # (a) the SphereCNN demo: its kernels at its shapes, then its steps
+    gen = torch.Generator(device=dev).manual_seed(seed + 140)
+    worst: dict = {}
+    demo_rows: list = []
+
+    def hold(name, kern, plain, dt, dk=False):
+        out_, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = (out_ - ref).abs().max().item()
+        if dt == torch.float32:
+            rtol, atol = (1e-3, 1e-4) if dk else (1e-4, 1e-4)
+            torch.testing.assert_close(out_, ref, rtol=rtol, atol=atol,
+                                       msg=lambda m: f"{name} at the demo's shapes: {m}")
+            key = (name, "float32")
+            worst[key] = max(worst.get(key, 0.0), err)
+        else:
+            scale = ref.abs().max().item()
+            if err > 2e-2 * scale:
+                raise AssertionError(f"{name} bf16 at the demo's shapes: {err} > 2e-2 * {scale}")
+            key = (name, "bf16_rel")
+            worst[key] = max(worst.get(key, 0.0), err / scale)
+
+    for (b, h, w, cin, cout) in DEMO_CONVS:
+        x = torch.rand(b, h, w, cin, device=dev, generator=gen)
+        k = torch.randn(3, 3, cin, cout, device=dev, generator=gen) / (9 * cin) ** 0.5
+        bias = torch.randn(cout, device=dev, generator=gen) * 0.1
+        g = torch.randn(b, h, w, cout, device=dev, generator=gen) / (b * h * w) ** 0.5
+        for dt in (torch.float32, torch.bfloat16):
+            xd, kd, gd = x.to(dt), k.to(dt), g.to(dt)
+            hold("sphere_conv_s1", lambda: SK.sphere_conv_s1(xd, kd, bias),
+                 lambda: sphere_conv_plain(xd, kd, bias), dt)
+            hold("sphere_conv_dk", lambda: SK.sphere_conv_dk(xd, gd, 1),
+                 lambda: dk_plain(xd, gd, 1), dt, dk=True)
+            if cin > 1:  # conv2: its dx runs B6 (30x30 < UMAJOR_MIN_PIXELS)
+                gx = torch.randn(b, h, w, cout, device=dev, generator=gen).to(dt)
+                hold("sphere_conv_dx_s1_triple",
+                     lambda: SK.sphere_conv_dx_s1_triple(gx, kd, tuple(x.shape)),
+                     lambda: dx_plain(gx, kd, tuple(x.shape), 1), dt)
+        # f32 times at the demo's shapes: kernel, plain version, both bounds
+        calls = [("sphere_conv_s1", "fwd", lambda: SK.sphere_conv_s1(x, k, bias),
+                  lambda: sphere_conv_plain(x, k, bias)),
+                 ("sphere_conv_dk", "dk", lambda: SK.sphere_conv_dk(x, g, 1),
+                  lambda: dk_plain(x, g, 1))]
+        if cin > 1:
+            calls.append(("sphere_conv_dx_s1_triple", "dx",
+                          lambda: SK.sphere_conv_dx_s1_triple(gx.float(), k, tuple(x.shape)),
+                          lambda: dx_plain(gx.float(), k, tuple(x.shape), 1)))
+        for name, kind, kern, plain in calls:
+            fan = inverse_tables(h, w, 1)[-1] if kind == "dx" else 64
+            bound, by = kernel_bound_ms(kind, b, h, w, cin, cout, 1, "float32", fan)
+            tcb, _ = kernel_bound_ms(kind, b, h, w, cin, cout, 1, "float32", fan, tc=True)
+            demo_rows.append({"kernel": name, "shape": [b, h, w, cin, cout], "ms": cuda_ms(
+                torch, kern), "plain_ms": cuda_ms(torch, plain), "bound_ms": bound,
+                "bound_by": by, "tc_bound_ms": tcb})
+    fanin = inverse_tables(30, 30, 1)[-1]
+    log(f"[surface] demo kernels at {DEMO_CONVS} (B, H, W, Cin, Cout; B6 at the second, "
+        f"fan-in {fanin}): worst " + ", ".join(f"{n} {d} {v:.3e}" for (n, d), v in
+                                               sorted(worst.items()))
+        + " (f32 rtol=atol 1e-4, dK rtol 1e-3; bf16 2e-2 of max|ref|)")
+    for r in demo_rows:
+        log(f"[surface] {smi}: {r['kernel']} {r['shape']} f32: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), tc bound "
+            f"{r['tc_bound_ms']:.4f} ms (CUDA events, median of 10)")
+
+    images, labels = synthetic_digits(2048)
+    ds = OmniDigits(images, labels, outshape=DEMO_HW, device=dev)
+    model = cli_demo.SphereNet(DEMO_HW, seed=seed).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+    rng = np.random.default_rng(seed)
+    step_ms, data_ms = [], []
+    for i in range(DEMO_TIMED + 2):
+        t0 = time.perf_counter()
+        xb, yb = ds.batch(rng.integers(0, len(ds), DEMO_BATCH))
+        xt = torch.from_numpy(xb / 255.0).to(dev)
+        yt = torch.from_numpy(yb).long().to(dev)
+        torch.cuda.synchronize()
+        data_ms.append((time.perf_counter() - t0) * 1e3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        (loss, acc), got = counted(lambda: cli_demo.train_step(model, opt, xt, yt))
+        ev[1].record()
+        if got != EXPECTED_DEMO_STEP:
+            raise AssertionError(f"demo step {i}: launches {got}, expected {EXPECTED_DEMO_STEP}")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"demo step {i}: loss {loss.item()}")
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+    step_ms, data_ms = step_ms[2:], data_ms[2:]  # the first two build tables and Adam state
+    prof = device_profile(torch, lambda: cli_demo.train_step(model, opt, xt, yt))
+    if prof is None:
+        log("[surface] the profiler saw no device work in a SphereNet step: not measured")
+    else:
+        wall_ms, busy_ms, ranked = prof
+        log(f"[surface] one SphereNet step under the profiler: {wall_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}; top device work:")
+        for name, ms, n in ranked:
+            log(f"[surface]   {ms:9.3f} ms  {ms / busy_ms:.4f}  x{n:<4d} {name[:100]}")
+    for w_ in wrappers.values():
+        w_.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc, lines = quiet(cli_demo.main, ["--train", str(DEMO_TRAIN), "--batch", str(DEMO_BATCH)])
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    demo_launches = {n: w_.launches for n, w_ in wrappers.items()}
+    want = {n: v * DEMO_TRAIN for n, v in EXPECTED_DEMO_STEP.items()}
+    if demo_launches != want:
+        raise AssertionError(f"sphere_demo --train {DEMO_TRAIN}: launches {demo_launches}, "
+                             f"expected {want}")
+    if not acc > DEMO_ACC_BAR:
+        raise AssertionError(f"sphere_demo --train {DEMO_TRAIN}: accuracy {acc} (bar "
+                             f"{DEMO_ACC_BAR}); "
+                             f"{lines[-3:]}")
+    out["demo"] = {"kernel_worst": {f"{n} {d}": v for (n, d), v in worst.items()},
+                   "kernel_rows": demo_rows, "profile": prof,
+                   "step_ms": statistics.median(step_ms), "data_ms": statistics.median(data_ms),
+                   "train_s": demo_s, "train_acc": acc, "launches": demo_launches}
+    log(f"[surface] {smi}: SphereNet step at batch {DEMO_BATCH}, {DEMO_HW[0]}x{DEMO_HW[1]}: "
+        f"{out['demo']['step_ms']:.4f} ms (CUDA events, median of {DEMO_TIMED}; "
+        f"{[round(v, 4) for v in step_ms]}), its batch's projection and copy "
+        f"{out['demo']['data_ms']:.4f} ms on the host clock; launches per step "
+        f"{EXPECTED_DEMO_STEP} (asserted); sphere_demo --train {DEMO_TRAIN}: "
+        f"{demo_s:.3f} s, last accuracy {acc:.4f} (bar 0.3), launches {demo_launches}; "
+        + "; ".join(lines[-2:]))
+
+    # (b) verify_parity at full size
+    parity = {}
+    parity_launches = dict.fromkeys(names, 0)
+    t0 = time.perf_counter()
+    dn = TR.build_torch_densenet(block_config=(16, 16, 16), n_anchors=96, pooled_hw=(6, 8))
+    TR.randomize_densenet(dn, seed=seed)
+    tg = TR.TGenerator(ngf=64, crop_size=256)
+    TR.randomize(tg, seed=seed)
+    td = TR.TMultiscaleD(ndf=64, num_d=2, n_layers=4, input_nc=6)
+    TR.randomize(td, seed=seed + 1)
+    for stage, m in (("regression", dn), ("generator", tg), ("discriminator", td)):
+        torch.save(m.state_dict(), os.path.join(work, f"{stage}.pth"))
+    del dn, tg, td
+    write_s = time.perf_counter() - t0
+    for stage in ("regression", "generator", "discriminator"):
+        t0 = time.perf_counter()
+        (rc, lines), got = counted(lambda: quiet(
+            cli_parity.main, ["--torch_pth", os.path.join(work, f"{stage}.pth")]))
+        secs = time.perf_counter() - t0
+        want = {n: EXPECTED_PARITY[stage].get(n, 0) for n in names}
+        if got != want:
+            raise AssertionError(f"verify_parity {stage}: launches {got}, expected {want}")
+        for n in names:
+            parity_launches[n] += got[n]
+        if rc != 0:
+            raise AssertionError(f"verify_parity {stage} failed: {lines}")
+        worst_rel = float(re.search(r"worst (\S+) vs tol", lines[-1]).group(1))
+        parity[stage] = {"worst_rel": worst_rel, "seconds": secs,
+                         "launches": {n: v for n, v in got.items() if v}}
+        log(f"[surface] verify_parity {stage} at full size: {lines[-1]} ({secs:.1f} s; "
+            f"launches {parity[stage]['launches']})")
+    out["parity"] = {**parity, "write_pth_s": write_s, "launches": parity_launches}
+
+    # (c) needlets_gt on phase 16's panoramas
+    sub = os.path.join(work, "warped")
+    os.makedirs(sub)
+    for nm in extract_files["names"][:NEEDLET_PANOS]:
+        shutil.copy(os.path.join(extract_files["warped"], f"{nm}.exr"), sub)
+    needlets = {}
+    for jmax in (2, 3):
+        runs = {}
+        for where in ("first", "cuda", "cpu"):  # "first": the card's cold run
+            (st, lines), _ = counted(lambda: quiet(cli_needlets.main, [
+                "--hdr_dir", sub, "--out_dir", os.path.join(work, f"nl{jmax}_{where}"),
+                "--jmax", str(jmax), "--batch", str(NEEDLET_PANOS),
+                "--device", "cuda" if where == "first" else where]))
+            runs[where] = st
+        pipe = NeedletPipeline(NeedletsConfig(jmax=jmax), device="cpu")
+        worst_rel, flips = 0.0, 0
+        for nm in extract_files["names"][:NEEDLET_PANOS]:
+            a = np.load(os.path.join(work, f"nl{jmax}_cuda", f"{nm}.npy"))
+            r = np.load(os.path.join(work, f"nl{jmax}_cpu", f"{nm}.npy"))
+            if a.shape != (pipe.n_coeffs, 3):
+                raise AssertionError(f"needlets_gt --jmax {jmax}: {nm}.npy {a.shape}")
+            worst_rel = max(worst_rel, float(np.abs(a - r).max() / np.abs(r).max()))
+            if jmax == 2:
+                dense = pipe.project(torch.from_numpy(
+                    read_hdr(os.path.join(sub, f"{nm}.exr"))[None]))[0].numpy()
+                flips += sparse_mismatch_ok(np, a, r, dense, pipe)
+            elif not np.allclose(a, r, rtol=0, atol=1e-5 * np.abs(r).max()):
+                raise AssertionError(f"needlets_gt --jmax 3: {nm} card vs CPU beyond 1e-5")
+        st, cold = runs["cuda"], runs["first"]
+        needlets[jmax] = {"coeffs": pipe.n_coeffs, "basis_s": cold["basis_s"],
+                          "panoramas_per_s": st["panoramas"] / st["seconds"],
+                          "project_ms": st["device_ms"], "first_project_ms": cold["device_ms"],
+                          "first_panoramas_per_s": cold["panoramas"] / cold["seconds"],
+                          "worst_rel": worst_rel, "threshold_flips": flips,
+                          "cpu_s": runs["cpu"]["seconds"]}
+        log(f"[surface] {smi}: needlets_gt --jmax {jmax} ({pipe.n_coeffs} coefficients, "
+            f"{'sparsified' if jmax == 2 else 'dense'}), {NEEDLET_PANOS} PIZ HALF panoramas "
+            f"of 128x256 in one batch: basis built in {cold['basis_s']:.3f} s (host, NumPy), "
+            f"project{' + sparsify' if jmax == 2 else ''} {st['device_ms'][0]:.4f} ms on the "
+            f"card (CUDA events; the cold first run {cold['device_ms'][0]:.4f} ms), "
+            f"{needlets[jmax]['panoramas_per_s']:.3f} panoramas/s over the CLI's loop "
+            f"({st['seconds']:.3f} s; first run {cold['seconds']:.3f} s, CPU run "
+            f"{runs['cpu']['seconds']:.3f} s); "
+            f".npy card vs CPU worst {worst_rel:.3e} of the file's largest coefficient "
+            f"(bar 1e-5), threshold flips {flips}")
+    out["needlets"] = needlets
+
+    # (d) fit_spherical_gaussians with no host sync inside its loop
+    dirs = torch.tensor(sphere_points(16)[[2, 7, 12]], dtype=torch.float32)
+    pano = render_sg(dirs[None], torch.full((1, 3), 0.05),
+                     torch.tensor([[[8.0, 6.0, 4.0], [3.0, 3.0, 3.0], [1.0, 2.0, 4.0]]]),
+                     h=128, w=256)[0] + 0.2
+    pano_d = pano.to(dev)
+    init = {k: torch.from_numpy(v).to(dev) for k, v in FIT.initial_params(3, seed).items()}
+    FIT.fit_spherical_gaussians(pano_d, n_lights=3, steps=2, init=init)  # tables onto the card
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ev[0].record()
+        fitted, env, metrics = FIT.fit_spherical_gaussians(pano_d, n_lights=3, steps=FIT_STEPS,
+                                                           init=init)
+        ev[1].record()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    fit_ms = ev[0].elapsed_time(ev[1])
+    losses = metrics["loss"].cpu().numpy()
+    _, _, cpu_m = FIT.fit_spherical_gaussians(pano, n_lights=3, steps=FIT_CHECKED,
+                                              init=FIT.initial_params(3, seed), device="cpu")
+    cpu_losses = cpu_m["loss"].numpy()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"fit: losses {losses[0]} -> {losses[-1]}")
+    np.testing.assert_allclose(losses[:FIT_CHECKED], cpu_losses, rtol=1e-4,
+                               err_msg="fit: the first losses, card vs CPU")
+    fit_rel = float(np.abs(losses[:FIT_CHECKED] - cpu_losses).max() / np.abs(cpu_losses).max())
+    cos = (fitted["dirs"].cpu() @ dirs.T).max(0).values
+    out["fit"] = {"ms_per_step": fit_ms / FIT_STEPS, "loss_first": float(losses[0]),
+                  "loss_last": float(losses[-1]), "first_losses_rel": fit_rel,
+                  "best_cos": cos.tolist()}
+    log(f"[surface] {smi}: fit_spherical_gaussians, 3 lights, {FIT_STEPS} steps at 128x256 "
+        f"under sync debug mode \"error\" (no host sync inside): {fit_ms / FIT_STEPS:.4f} ms "
+        f"per step (CUDA events over the call); loss {losses[0]:.6g} -> {losses[-1]:.6g}; "
+        f"first {FIT_CHECKED} losses within {fit_rel:.3e} of the CPU's (rtol 1e-4); best "
+        f"cosine to each true light {[round(c, 4) for c in cos.tolist()]}")
+
+    # (e) the small tools
+    rng = np.random.default_rng(seed + 141)
+    a_ = rng.random((2, 3, 32, 64)).astype(np.float32) + 1e-3
+    b_ = rng.random((2, 3, 32, 64)).astype(np.float32) + 1e-3
+    ot_card = image_sinkhorn(torch.from_numpy(a_).to(dev), torch.from_numpy(b_).to(dev),
+                             reg=0.05, max_iter=20).cpu()
+    ot_cpu = image_sinkhorn(torch.from_numpy(a_), torch.from_numpy(b_), reg=0.05, max_iter=20)
+    ot_rel = float((ot_card - ot_cpu).abs().max() / ot_cpu.abs().max())
+    torch.testing.assert_close(ot_card, ot_cpu, rtol=1e-4, atol=0,
+                               msg=lambda m: f"image_sinkhorn card vs CPU: {m}")
+    prev_dir = os.path.join(work, "preview")
+    n_prev, _ = quiet(cli_preview.main, ["--hdr_dir", sub, "--out_dir", prev_dir])
+    for nm in extract_files["names"][:NEEDLET_PANOS]:
+        want_png = (TONEMAP_VIZ(read_hdr(os.path.join(sub, f"{nm}.exr")))[0] * 255).astype(
+            np.uint8)
+        if not np.array_equal(read_png(os.path.join(prev_dir, f"{nm}.png"), np), want_png):
+            raise AssertionError(f"preview {nm}.png is not TONEMAP_VIZ x 255")
+    pkl_src, scaled = extract_files["pickles"], os.path.join(work, "scaled")
+    quiet(cli_modify.main, ["--pkl_dir", pkl_src, "--out_dir", scaled,
+                            "--scale_intensity", "2.0", "--scale_ambient", "0.5"])
+    for nm in os.listdir(pkl_src):
+        with open(os.path.join(pkl_src, nm), "rb") as f:
+            src = pickle.load(f)
+        with open(os.path.join(scaled, nm), "rb") as f:
+            got = pickle.load(f)
+        if not (np.array_equal(got["intensity"], np.asarray(src["intensity"]) * 2.0)
+                and np.array_equal(got["ambient"], np.asarray(src["ambient"]) * 0.5)
+                and np.array_equal(got["distribution"], src["distribution"])):
+            raise AssertionError(f"modify_pickles scaling: {nm}")
+    legacy = {}
+    for where in ("cuda", "cpu"):
+        quiet(cli_modify.main, ["--hdr_dir", sub, "--out_dir", os.path.join(work, f"l42_{where}"),
+                                "--legacy_42", "--device", where])
+    legacy_rel = 0.0
+    for nm in extract_files["names"][:NEEDLET_PANOS]:
+        for where in ("cuda", "cpu"):
+            with open(os.path.join(work, f"l42_{where}", f"{nm}.pickle"), "rb") as f:
+                legacy[where] = pickle.load(f)
+        if legacy["cuda"]["distribution"].shape != (42,):
+            raise AssertionError(f"modify_pickles --legacy_42: {nm}")
+        for k, v in legacy["cpu"].items():
+            np.testing.assert_allclose(legacy["cuda"][k], v, rtol=1e-5,
+                                       err_msg=f"--legacy_42 card vs CPU: {nm} {k}")
+            legacy_rel = max(legacy_rel, float(np.abs(legacy["cuda"][k] - v).max()
+                                               / np.abs(v).max()))
+    out["tools"] = {"image_sinkhorn_rel": ot_rel, "previews": n_prev,
+                    "legacy_42_worst_rel": legacy_rel}
+    log(f"[surface] image_sinkhorn (2, 3, 32, 64), reg 0.05, 20 iterations: card vs CPU "
+        f"{ot_rel:.3e} (rtol 1e-4); preview: {n_prev} PNGs equal TONEMAP_VIZ x 255; "
+        f"modify_pickles: {len(os.listdir(pkl_src))} pickles scaled exactly, --legacy_42 card "
+        f"vs CPU {legacy_rel:.3e} (rtol 1e-5); phase took {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(extract_files["work"], ignore_errors=True)
+    out["launches"] = {"demo": demo_launches, "parity": parity_launches}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2734,8 +3164,11 @@ def main(argv=None) -> int:
     save()
     tables["extract"] = run_extract(torch, np, dev, args.seed, smi)
     save()
+    extract_files = tables["extract"].pop("files")
     tables["dist"] = run_dist(torch, np, dev, args.seed, smi, tables["cli"].pop("files"),
                               tables["tcli"].pop("files"))
+    save()
+    tables["surface"] = run_surface(torch, np, dev, args.seed, smi, extract_files)
     save()
 
     # 17. kernels line
@@ -2769,6 +3202,9 @@ def main(argv=None) -> int:
             entry["fused_step_launches"] = EXPECTED_FUSED_STEP[entry["name"]]
         if entry["name"] == "dense_conv_fwd":  # the regressor's buffer eval forward, phase 4
             entry["serving_launches"] = serving_b7
+        if entry["name"] in EXPECTED_DEMO_STEP:  # phase 16c: sphere_demo --train, verify_parity
+            entry["demo_launches"] = tables["surface"]["launches"]["demo"][entry["name"]]
+            entry["parity_launches"] = tables["surface"]["launches"]["parity"][entry["name"]]
     log(smi)
     log(json.dumps(kernels_line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,9 +8,15 @@
 - ``eval_projector``   a projector checkpoint's env and light-direction errors
 - ``eval_metrics``     a regression checkpoint's parameter, env and direction errors
 - ``extract_distribution`` warped panorama .exr -> anchor-GT pickles
+- ``needlets_gt``      warped panorama .exr -> needlet coefficient .npy (jmax 2 or 3)
+- ``fit_single``       one panorama -> fitted spherical Gaussians (.exr + .png strip)
+- ``verify_parity``    a reference .pth against the imported port model (1e-3 bar)
+- ``sphere_demo``      OmniMNIST-style digits on the sphere: PNG dumps, SphereCNN training
+- ``preview``          panorama .exr -> tonemapped .png previews
+- ``modify_pickles``   rescale anchor-GT pickles, or re-extract them on 42 anchors
 
 Same flags and outputs as their emlight_tpu.cli counterparts, plus
-``--device`` (CUDA unless ``cpu`` is asked); previews are .png where the
-JAX CLIs write .jpg, and the flags of features not ported yet exit with
-their ROADMAP.md item, named by its title.
+``--device`` (CUDA unless ``cpu`` is asked; ``preview``'s tonemap is host
+work); previews are .png where the JAX CLIs write .jpg, and the flags of
+features not ported yet exit with their ROADMAP.md item, named by its title.
 """

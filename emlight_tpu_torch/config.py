@@ -1,8 +1,6 @@
 """Dataclass config tree — same fields and defaults as emlight_tpu/config.py.
 
-Kept as an own copy (the port imports nothing of the JAX package). Only the
-configs the port's entry points read are here; NeedletsConfig waits for the
-needlets port.
+Kept as an own copy (the port imports nothing of the JAX package).
 """
 
 from __future__ import annotations
@@ -88,3 +86,13 @@ class ProjectorConfig:
     niter: int = 100
     niter_decay: int = 100
     clip_grad_norm: float = 0.0
+
+
+@dataclass(frozen=True)
+class NeedletsConfig:
+    jmax: int = 2
+    b: float = 2.0
+    env_h: int = 128
+    env_w: int = 256
+    # per-band keep fractions (gt_gen_j2.py:47-66): top 25% of j2, 55% of j1, 70% of j0
+    sparsity_percentiles: tuple[float, ...] = (30.0, 45.0, 75.0)  # j0, j1, j2 thresholds

@@ -11,8 +11,8 @@ import functools
 import numpy as np
 
 __all__ = ["sphere_points", "geometric_points", "equirect_xyz_splat", "equirect_xyz_gt",
-           "steradian_map", "rgb_to_intensity", "polar_to_cartesian", "cartesian_to_polar",
-           "nearest_anchor_index", "icosphere", "INTENSITY_WEIGHTS_GT"]
+           "steradian_map", "solid_angle_map", "rgb_to_intensity", "polar_to_cartesian",
+           "cartesian_to_polar", "nearest_anchor_index", "icosphere", "INTENSITY_WEIGHTS_GT"]
 
 # Luma weights used by GT extraction / light-mask construction
 # (distribution_representation.py:16-17,93; GenProjector/data.py:75).
@@ -103,6 +103,20 @@ def steradian_map(height: int, width: int, multiply: bool = True) -> np.ndarray:
     if multiply:
         s = s * (((2 * np.pi) / width) * (np.pi / height))
     return s.astype(np.float32)
+
+
+def solid_angle_map(width: int) -> np.ndarray:
+    """Exact per-pixel solid angles for a (width/2, width) panorama, float64.
+
+    Port of Needlets/utils.py:35-50 (cos-difference formula).
+    """
+    height = width // 2
+    y = np.arange(0, height, dtype=np.float64)
+    theta = (1.0 - ((y + 0.5) / height)) * np.pi
+    pi2_over_w = (np.pi * 2) / width
+    pi_over_h = np.pi / height
+    sa = pi2_over_w * (np.cos(theta - pi_over_h / 2.0) - np.cos(theta + pi_over_h / 2.0))
+    return np.repeat(sa[:, None], width, axis=1)
 
 
 @functools.lru_cache(maxsize=None)

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-__all__ = ["SphereConv2D", "sphere_taps", "sphere_conv_plain", "sphere_conv"]
+__all__ = ["SphereConv2D", "SphereMaxPool2D", "sphere_taps", "sphere_gather",
+           "sphere_conv_plain", "sphere_conv"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,6 +113,26 @@ def _taps_on(h: int, w: int, stride: int, device: str):
     return idx_t, wgt_t
 
 
+def sphere_gather(x: torch.Tensor, stride: int = 1, tap: int | None = None) -> torch.Tensor:
+    """Bilinear-resample features at the gnomonic taps (plain PyTorch; the
+    JAX package's ``sphere_gather`` uses no Pallas kernel either).
+
+    x: (B, H, W, C) -> (B, Ho*Wo, 9, C), or (B, Ho*Wo, C) for a single tap;
+    the four neighbours times their float32 weights, summed in the JAX
+    package's order.
+    """
+    b, h, w, c = x.shape
+    idx_t, wgt_t = _taps_on(h, w, stride, str(x.device))
+    xf = x.reshape(b, h * w, c)
+    outs = []
+    for t in range(9) if tap is None else (tap,):
+        acc = 0.0
+        for k in range(4):
+            acc = acc + xf[:, idx_t[t, :, k]] * wgt_t[t, :, k][None, :, None]
+        outs.append(acc)
+    return outs[0] if tap is not None else torch.stack(outs, dim=2)
+
+
 def sphere_conv_plain(x: torch.Tensor, kernel: torch.Tensor,
                       bias: torch.Tensor | None = None, stride: int = 1) -> torch.Tensor:
     """The gather formulation in plain PyTorch (no dispatch).
@@ -177,3 +198,18 @@ class SphereConv2D(nn.Module):
         # x may be a channel slice of a fused conv's output: the kernel reads
         # a dense NHWC block
         return sphere_conv(x.to(cdt).contiguous(), self.kernel.to(cdt), self.bias, self.stride)
+
+
+class SphereMaxPool2D(nn.Module):
+    """Max over the 9 gnomonic taps (drop-in for spherenet.SphereMaxPool2D):
+    (B, H, W, C) -> (B, Ho, Wo, C). ``amax`` shares the gradient among tied
+    taps, as jnp.max's does."""
+
+    def __init__(self, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = sphere_gather(x, self.stride)  # (B, P, 9, C)
+        _, _, (ho, wo) = sphere_taps(x.shape[1], x.shape[2], self.stride)
+        return s.amax(dim=2).reshape(x.shape[0], ho, wo, x.shape[3])

@@ -31,7 +31,7 @@ import torch
 __all__ = ["densenet_state_from_jax", "densenet_grads_from_jax", "generator_state_from_jax",
            "discriminator_state_from_jax", "densenet_tree_from_state",
            "generator_tree_from_state", "discriminator_tree_from_state",
-           "adam_tree_from_state", "adam_state_from_tree"]
+           "spherenet_state_from_jax", "adam_tree_from_state", "adam_state_from_tree"]
 
 
 def _walk(tree: Mapping, prefix: tuple = ()):
@@ -136,6 +136,22 @@ def discriminator_state_from_jax(params: Mapping, stats: Mapping) -> dict[str, t
         raise KeyError(f"unexpected discriminator collections {sorted(unknown)}")
     for path, a in _walk(stats.get("spectral", {})):
         sd[".".join(path)] = _f32(a)
+    return _tensors(sd)
+
+
+def spherenet_state_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """The sphere demo's SphereNet (cli/sphere_demo.py) params -> port
+    state_dict: the sphere-conv kernels HWIO as they are, the Dense head's
+    kernel (in, out) -> Linear weight (out, in)."""
+    sd = {}
+    for path, a in _walk(params):
+        mod, leaf = ".".join(path[:-1]), path[-1]
+        if leaf == "kernel" and a.ndim == 2:
+            sd[f"{mod}.weight"] = _f32(a.T)
+        elif leaf in ("kernel", "bias"):
+            sd[f"{mod}.{leaf}"] = _f32(a)
+        else:
+            raise KeyError(f"unexpected SphereNet parameter {'/'.join(path)}")
     return _tensors(sd)
 
 

@@ -645,3 +645,41 @@ def test_dense_conv_wrappers_reject_what_the_kernels_do_not_take(card):
         tdk.dense_conv_dk(x.transpose(1, 2), g, a, b)
     with pytest.raises(ValueError):
         tdk.dense_conv_fwd(x, a[:4], b, k)
+
+
+# the SphereCNN demo's square maps (cli/sphere_demo.py: conv1 60x60 1 -> 32,
+# conv2 30x30 32 -> 64): a 1-channel input to B1 and B4, and B6's dx tables
+# at 30x30 (fan-in 52, up to 10 slots per (row, tap), where the GAN's maps
+# have 48 and 8)
+DEMO_SHAPES = [((2, 60, 60, 1), 32), ((2, 30, 30, 32), 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,cout", DEMO_SHAPES)
+def test_demo_shapes_match_plain(card, dtype, shape, cout):
+    dt = getattr(torch, dtype)
+    x, k, bias = _inputs(shape, cout, card, seed=14)
+    x, k = x.to(dt), k.to(dt)
+    before = tker.sphere_conv_s1.launches
+    out = tker.sphere_conv_s1(x, k, bias)
+    torch.cuda.synchronize()
+    assert tker.sphere_conv_s1.launches == before + 1
+    _close(out, tsc.sphere_conv_plain(x, k, bias), dtype)
+
+    xk, _, g = _grad_inputs(shape, cout, 1, card, seed=15, mean_loss=True)
+    xk, g = xk.to(dt), g.to(dt)
+    before = tker.sphere_conv_dk.launches
+    dk = tker.sphere_conv_dk(xk, g, 1)
+    torch.cuda.synchronize()
+    assert tker.sphere_conv_dk.launches == before + 1
+    _close(dk, tvjp.dk_plain(xk, g, 1), dtype, rtol=1e-3, atol=1e-4)
+
+    if shape[-1] > 1:  # conv2: its dx, on B6 (900 pixels)
+        _, kx, gx = _grad_inputs(shape, cout, 1, card, seed=16)
+        kx, gx = kx.to(dt), gx.to(dt)
+        assert tvjp.inverse_tables(*shape[1:3], 1)[-1] == 52
+        before = tker.sphere_conv_dx_s1_triple.launches
+        dx = tker.sphere_conv_dx(gx, kx, shape, 1)
+        torch.cuda.synchronize()
+        assert tker.sphere_conv_dx_s1_triple.launches == before + 1
+        _close(dx, tvjp.dx_plain(gx, kx, shape, 1), dtype)

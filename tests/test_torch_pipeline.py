@@ -149,10 +149,11 @@ def test_pipeline_rejects_models_on_another_device(models):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port, the CLIs, the loop services and the native
-    EXR codec included, imports nothing of JAX or the JAX package, and
-    nothing the card's machine lacks (msgpack, PIL, cv2, imageio: the port
-    has its own msgpack codec, PNG writer and area resize)."""
+    """Every module of the port, the CLIs, the loop services, the native
+    EXR codec, the needlets and the reference oracle included, imports
+    nothing of JAX or the JAX package, and nothing the card's machine lacks
+    (msgpack, PIL, cv2, imageio: the port has its own msgpack codec, PNG
+    writer and area resize; scipy, which the needlets use, it has)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import emlight_tpu_torch
@@ -161,9 +162,12 @@ def test_port_imports_nothing_of_jax():
         for name in names:
             importlib.import_module(name)
         for cli in ("infer", "test_regression", "train_regression", "train_projector",
-                    "test_projector", "eval_projector", "eval_metrics"):
+                    "test_projector", "eval_projector", "eval_metrics", "extract_distribution",
+                    "needlets_gt", "fit_single", "verify_parity", "sphere_demo", "preview",
+                    "modify_pickles"):
             assert f"emlight_tpu_torch.cli.{cli}" in names, names
-        for mod in ("native", "train.loop", "train.data", "train.checkpoint"):
+        for mod in ("native", "train.loop", "train.data", "train.checkpoint",
+                    "needlets.pipeline", "train.torch_ref"):
             assert f"emlight_tpu_torch.{mod}" in names, names
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "emlight_tpu",
@@ -174,4 +178,4 @@ def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 40  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 69  # every module was imported
