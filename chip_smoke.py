@@ -17,7 +17,8 @@ GT from panorama files (cli.extract_distribution), runs training and
 serving data-parallel (--parallel: one rank at world size 1 on NCCL, two
 ranks on the card over gloo), drives the rest of the single-card surface
 (the SphereCNN demo, reference-.pth parity, needlet GT, the
-spherical-Gaussian fit and the small tools), and holds every hand-written
+spherical-Gaussian fit and the small tools), serves tensor-parallel over
+a (data, model) grid of ranks (dist/auto.py), and holds every hand-written
 kernel against its plain PyTorch version. The regressor runs
 as the JAX package runs it by default: the concat-free buffer forwards
 (nn/densenet_fast.py) in serving and training. Phases, each of which raises
@@ -148,13 +149,25 @@ on failure:
             fit_spherical_gaussians (3 lights, 500 steps) under torch.cuda's
             sync debug mode "error"; (e) image_sinkhorn card vs CPU,
             cli.preview and cli.modify_pickles on phase 16's files
+16d. auto   tensor-parallel serving (dist/auto.py, run_auto) at full width
+            on phase 4's models and crops (batch 8): nvidia-smi -L logged;
+            (a) dp1 x tp2, NCCL on two cards where there are two, else two
+            ranks sharing card 0 over gloo; (b) dp2 x tp2 over NCCL where
+            there are four cards, else logged as skipped; each rank's env
+            maps and distribution against its rows of one card's
+            pipeline_inference (bar from the jitter's change, as 16b),
+            launches per rank and request asserted (B1 44, B7 48), every
+            B1 launch at Cout/tp (the head whole, Cout 3); B1 against its
+            plain version at those shapes and at tp 4's Cout/4 (f32 and
+            bf16), timed beside its bounds; per-rank request ms
 17. kernels one JSON line with every ported kernel, each with its bound on
             the CUDA cores (bound_ms) and on the tensor cores (tc_bound_ms)
             and its launches in phase 15 (tcli_launches; B7's in serving,
             serving_launches; B1-B6's in phase 9b, gan_launches, and per
             fused step, fused_step_launches; phase 16c's sphere_demo
             --train 200 and verify_parity runs, demo_launches and
-            parity_launches)
+            parity_launches; B1's and B7's in phase 16d over its ranks,
+            auto_launches)
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 run from a directory without the package beside it, it exits non-zero and
@@ -166,6 +179,7 @@ prints no result. --out writes the per-shape tables as JSON.
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import dataclasses
 import json
@@ -2268,10 +2282,13 @@ def dist_gan_batch(np, cfg, seed: int, jitter: bool = False) -> dict:
     return b
 
 
-def spawn_ranks(torch, work: str, n: int, backend: str, seed: int) -> list:
-    """Start `n` ranks of _dist_rank, join them with a deadline (killing
-    them all when it passes), raise unless each exited 0; their results."""
-    ctx = torch.multiprocessing.start_processes(_dist_rank, args=(work, n, backend, seed),
+def spawn_ranks(torch, work: str, n: int, backend: str, seed: int, fn=None,
+                extra: tuple = ()) -> list:
+    """Start `n` ranks of `fn` (_dist_rank) with (work, n, backend, seed,
+    *extra), join them with a deadline (killing them all when it passes),
+    raise unless each exited 0; their results."""
+    ctx = torch.multiprocessing.start_processes(fn or _dist_rank,
+                                                args=(work, n, backend, seed, *extra),
                                                 nprocs=n, join=False, start_method="spawn")
     end = time.monotonic() + DIST_TIMEOUT_S
     try:
@@ -2890,6 +2907,250 @@ def run_surface(torch, np, dev, seed: int, smi, extract_files: dict) -> dict:
     return out
 
 
+# phase 16d: tensor-parallel serving (dist/auto.py) over (data, model) grids
+# of ranks at full width and phase 4's batch: dp1 x tp2 always (NCCL across
+# two cards, else two ranks sharing card 0 over gloo), dp2 x tp2 over NCCL
+# where there are four cards. Per rank and request: B1 44 (every conv on its
+# Cout/tp slice, the head whole at Cout 3), B7 48 (the regressor, whole on
+# every rank over its data rows)
+EXPECTED_AUTO_REQUEST = {"sphere_conv_s1": LAUNCHES_PER_FORWARD,
+                         "dense_conv_fwd": EXPECTED_REG_STEP["dense_conv_fwd"]}
+AUTO_REL = 1e-4  # the floor of the bar on the maps and the distribution, of max|ref|
+AUTO_TIMED = 5  # timed requests per rank
+
+
+def _auto_rank(index: int, work: str, n: int, backend: str, seed: int, tp: int) -> None:
+    """Phase 16d: one rank of `n` on the (n / tp, tp) grid of make_mesh.
+    Joins a `backend` group whose FileStore is in `work` (gloo: every rank
+    on card 0; NCCL: rank r on card r), builds phase 4's seeded models,
+    places them with auto_shard_state and serves its data rows of
+    work/crops.pt through make_auto_pipeline: one request with the kernels'
+    launches and the model all-gathers read around it and every B1 launch's
+    shape recorded (B, H, W, Cin, Cout on this rank), then AUTO_TIMED timed
+    (CUDA events). Saves the outputs, launches, shapes and times in
+    work/rank{index}.pt."""
+    sys.path.insert(0, HERE)
+    os.environ.update(RANK=str(index), WORLD_SIZE=str(n), LOCAL_RANK=str(index))
+    import torch
+
+    from emlight_tpu_torch.config import ProjectorConfig, RegressionConfig
+    from emlight_tpu_torch.dist import auto as A
+    from emlight_tpu_torch.dist import mesh
+    from emlight_tpu_torch.nn import dense_conv_kernel as DK
+    from emlight_tpu_torch.nn import sphere_conv_kernel as SK
+    from emlight_tpu_torch.train import projector as PJ
+    from emlight_tpu_torch.train import regression as RG
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", index if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    group, created = mesh.join(dev, "file://" + os.path.join(work, "store"),
+                               timeout_s=DIST_TIMEOUT_S, backend=backend)
+    grid = mesh.make_mesh(group, tp)
+    reg_cfg, proj_cfg = RegressionConfig(), ProjectorConfig()
+    regressor = A.auto_shard_state(RG.make_model(reg_cfg, device=dev, seed=seed), grid)
+    generator = A.auto_shard_state(PJ.make_models(proj_cfg, device=dev, seed=seed + 1), grid)
+    crop_reg, crop_proj = (A.auto_shard_batch(c, grid).to(dev)
+                           for c in torch.load(os.path.join(work, "crops.pt")))
+    run = A.make_auto_pipeline(reg_cfg, proj_cfg, grid)
+    wrappers = {"sphere_conv_s1": SK.sphere_conv_s1, "dense_conv_fwd": DK.dense_conv_fwd}
+    shapes = []
+    hooks = [m.register_forward_hook(lambda mod, inp, _out: shapes.append(
+        (*inp[0].shape[:3], mod.in_channels, mod.kernel.shape[-1], mod.out_channels)))
+        for m in generator.modules() if isinstance(m, A.ColumnSphereConv)]
+    torch.cuda.synchronize()
+    for w_ in wrappers.values():
+        w_.launches = 0
+    mesh.all_gather_channels.calls = 0
+    env, pred = run(regressor, generator, crop_reg, crop_proj, dev)
+    torch.cuda.synchronize()
+    launches = {k: w_.launches for k, w_ in wrappers.items()}
+    gathers = mesh.all_gather_channels.calls
+    for h in hooks:
+        h.remove()
+    if launches != EXPECTED_AUTO_REQUEST:
+        raise AssertionError(f"rank {index}: launches {launches}, expected "
+                             f"{EXPECTED_AUTO_REQUEST}")
+    ms = cuda_ms(torch, lambda: run(regressor, generator, crop_reg, crop_proj, dev), warmup=1,
+                 iters=AUTO_TIMED)
+    mesh.barrier(group)
+    mesh.leave(created)
+    torch.save({"env": env.cpu(), "pred": {k: v.cpu() for k, v in pred.items()},
+                "launches": launches, "gathers": gathers, "shapes": shapes, "ms": ms,
+                "data": (grid.data.rank, grid.data.size),
+                "model": (grid.model.rank, grid.model.size)},
+               os.path.join(work, f"rank{index}.pt"))
+
+
+def run_auto(torch, np, dev, seed: int, smi, regressor, generator, reg_cfg, proj_cfg,
+             crops) -> dict:
+    """Phase 16d: tensor-parallel serving (dist/auto.py) at full width.
+
+    Logs nvidia-smi -L. The single card's pipeline_inference on phase 4's
+    crops (`crops`, batch 8) and on the crops jittered by JITTER relative
+    give the reference and the bar: the env maps and the distribution
+    within the larger of AUTO_REL and GRAD_SPREAD times the jitter's
+    change, of max|ref|. (a) dp1 x tp2: two ranks (_auto_rank) over NCCL
+    on two cards where there are two, else sharing card 0 over gloo with
+    CUDA tensors; (b) dp2 x tp2 over NCCL where there are four cards, else
+    logged as skipped. Each rank's outputs are held to its data rows of the
+    reference, its launches per request asserted (EXPECTED_AUTO_REQUEST)
+    and every B1 launch's Cout held to Cout/tp, or to the whole Cout where
+    it does not divide (the head, 3); then B1 against its plain version
+    (f32 with TF32 off, and bf16) at every shape the ranks launched it at,
+    timed beside its bounds, and at the same convs' Cout/4 (tp 4, not
+    run). Per-rank request times are logged with the card; over gloo on
+    one card they are no scaling figure."""
+    import shutil
+    import tempfile
+
+    from emlight_tpu_torch.nn.sphere_conv import sphere_conv_plain
+    from emlight_tpu_torch.nn.sphere_conv_kernel import sphere_conv_s1
+    from emlight_tpu_torch.train import pipeline as PL
+
+    t_phase = time.perf_counter()
+    cards = subprocess.run(["nvidia-smi", "-L"], capture_output=True, text=True, timeout=60,
+                           check=True).stdout.strip().splitlines()
+    n_cards = torch.cuda.device_count()
+    log(f"[auto] nvidia-smi -L: {len(cards)} card(s): " + "; ".join(cards))
+    work = os.path.join(HERE, "build", "auto_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    crop_reg, crop_proj = (c.cpu() for c in crops)
+
+    def request(cr, cp):
+        env_, pred_ = PL.pipeline_inference(regressor, generator, cr.to(dev), cp.to(dev),
+                                            reg_cfg, proj_cfg, device=dev)
+        return env_.cpu(), pred_["distribution"].cpu()
+
+    env_ref, dist_ref = request(crop_reg, crop_proj)
+    rng = np.random.default_rng(seed + 160)
+    jit = [c * (1 + JITTER * torch.from_numpy(rng.standard_normal(c.shape)).float())
+           for c in (crop_reg, crop_proj)]
+    env_j, dist_j = request(*jit)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()  # noqa: E731
+    bars = {"env": max(AUTO_REL, GRAD_SPREAD * rel(env_j, env_ref)),
+            "distribution": max(AUTO_REL, GRAD_SPREAD * rel(dist_j, dist_ref))}
+    single_ms = cuda_ms(torch, lambda: PL.pipeline_inference(
+        regressor, generator, crops[0], crops[1], reg_cfg, proj_cfg, device=dev), warmup=1,
+        iters=AUTO_TIMED)
+    log(f"[auto] single card: pipeline_inference at batch {len(crop_reg)} {single_ms:.3f} ms; "
+        f"the jitter ({JITTER} relative) moves the env maps by {rel(env_j, env_ref):.3e} and the "
+        f"distribution by {rel(dist_j, dist_ref):.3e} of max|ref|: bars env {bars['env']:.3e}, "
+        f"distribution {bars['distribution']:.3e}")
+
+    runs = [("dp1 x tp2", 2, 2, "nccl" if n_cards >= 2 else "gloo")]
+    if n_cards >= 4:
+        runs.append(("dp2 x tp2", 4, 2, "nccl"))
+    else:
+        log(f"[auto] (b) dp2 x tp2 skipped: {n_cards} card(s), NCCL over four needs 4")
+    out: dict = {"launches": {k: 0 for k in EXPECTED_AUTO_REQUEST}, "ms": {}, "cards": cards}
+    shapes, tp4, per_request = set(), set(), {}
+    for label, n, tp, backend in runs:
+        t0 = time.perf_counter()
+        rdir = tempfile.mkdtemp(dir=work)
+        torch.save((crop_reg, crop_proj), os.path.join(rdir, "crops.pt"))
+        ranks = spawn_ranks(torch, rdir, n, backend, seed, _auto_rank, (tp,))
+        errs = {"env": 0.0, "distribution": 0.0}
+        for r, rk in enumerate(ranks):
+            d, dp = rk["data"]
+            rows = slice(d * len(crop_reg) // dp, (d + 1) * len(crop_reg) // dp)
+            for key, got, ref in (("env", rk["env"], env_ref[rows]),
+                                  ("distribution", rk["pred"]["distribution"], dist_ref[rows])):
+                errs[key] = max(errs[key], rel(got, ref))
+                if not torch.isfinite(got).all() or rel(got, ref) > bars[key]:
+                    raise AssertionError(f"{label} rank {r}: {key} {rel(got, ref):.3e} of "
+                                         f"max|ref| from one card's, bar {bars[key]:.3e}")
+            if not torch.equal(rk["env"], ranks[r - r % tp]["env"]):
+                raise AssertionError(f"{label}: the model ranks of data index {d} disagree")
+            if len(rk["shapes"]) != LAUNCHES_PER_FORWARD:
+                raise AssertionError(f"{label} rank {r}: {len(rk['shapes'])} split convs ran")
+            for (b, h, w, cin, cout, whole) in rk["shapes"]:
+                want = 3 if whole == 3 else whole // tp
+                if cout != want:
+                    raise AssertionError(f"{label} rank {r}: B1 at Cout {cout} of {whole}, "
+                                         f"expected {want}")
+                shapes.add((b, h, w, cin, cout))
+                if whole != 3 and whole % 4 == 0:  # the same conv at tp 4, checked only
+                    tp4.add((b, h, w, cin, whole // 4))
+            for k in EXPECTED_AUTO_REQUEST:
+                out["launches"][k] += rk["launches"][k]
+        out["ms"][label] = [rk["ms"] for rk in ranks]
+        per_request[label] = collections.Counter(tuple(sh[:5]) for sh in ranks[0]["shapes"])
+        heads = sum(1 for s in ranks[0]["shapes"] if s[-1] == 3)
+        log(f"[auto] ({'a' if n == 2 else 'b'}) {label} over {backend}"
+            + (" (two ranks sharing card 0, CUDA tensors)" if backend == "gloo" else "")
+            + f": env within {errs['env']:.3e} and distribution within "
+            f"{errs['distribution']:.3e} of one card's (of max|ref|); per rank and request "
+            f"{ranks[0]['launches']} (asserted), {ranks[0]['gathers']} model all-gathers; B1 "
+            f"at Cout/tp on {LAUNCHES_PER_FORWARD - heads} convs, whole on {heads} (Cout 3); "
+            f"request ms by rank (CUDA events, median of {AUTO_TIMED}) "
+            + "/".join(f"{rk['ms']:.3f}" for rk in ranks) + f" on {smi}"
+            + ("; not a scaling figure: gloo stages every all-gather through the host and "
+               "the ranks share one card" if backend == "gloo" else "")
+            + f"; took {time.perf_counter() - t0:.1f} s")
+
+    # B1 against its plain version at every shape the ranks launched it at,
+    # timed, and at the same convs' Cout/4 (tp 4: Cout 16 at ngf 64)
+    gen = torch.Generator(device=dev).manual_seed(seed + 161)
+    worst = {"float32": 0.0, "bf16_rel": 0.0}
+    rows = []
+    for (b, h, w, cin, cout) in sorted(shapes | tp4):
+        x = torch.rand(b, h, w, cin, device=dev, generator=gen)
+        k = torch.randn(3, 3, cin, cout, device=dev, generator=gen) / (9 * cin) ** 0.5
+        bias = torch.randn(cout, device=dev, generator=gen) * 0.1
+        for dt in (torch.float32, torch.bfloat16):
+            xd, kd = x.to(dt), k.to(dt)
+            got, ref = sphere_conv_s1(xd, kd, bias), sphere_conv_plain(xd, kd, bias)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            if dt == torch.float32:
+                torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4,
+                                           msg=lambda m: f"B1 at {(b, h, w, cin, cout)}: {m}")
+                worst["float32"] = max(worst["float32"], err)
+            else:
+                scale = ref.abs().max().item()
+                if err > 2e-2 * scale:
+                    raise AssertionError(f"B1 bf16 at {(b, h, w, cin, cout)}: {err} > 2e-2 * "
+                                         f"{scale}")
+                worst["bf16_rel"] = max(worst["bf16_rel"], err / scale)
+        if (b, h, w, cin, cout) not in shapes:
+            continue
+        bound, by = kernel_bound_ms("fwd", b, h, w, cin, cout, 1, "float32")
+        tcb, _ = kernel_bound_ms("fwd", b, h, w, cin, cout, 1, "float32", tc=True)
+        xb, kb = x.bfloat16(), k.bfloat16()
+        rows.append({"shape": [b, h, w, cin, cout], "ms": cuda_ms(
+            torch, lambda: sphere_conv_s1(x, k, bias)), "bf16_ms": cuda_ms(
+            torch, lambda: sphere_conv_s1(xb, kb, bias)), "plain_ms": cuda_ms(
+            torch, lambda: sphere_conv_plain(x, k, bias)), "bound_ms": bound, "bound_by": by,
+            "tc_bound_ms": tcb})
+        r = rows[-1]
+        log(f"[auto] sphere_conv_s1 B{b} {h}x{w} {cin}->{cout}: kernel {r['ms']:.4f} ms, "
+            f"bf16 {r['bf16_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), tc bound {tcb:.4f} ms")
+    del x, k
+    torch.cuda.empty_cache()
+    out["b1_shapes"], out["b1_worst"] = rows, worst
+    # B1's 44 launches of one rank's request, summed
+    out["b1_per_request"] = {label: {key: sum(r[key] * cnt[tuple(r["shape"])] for r in rows
+                                              if tuple(r["shape"]) in cnt)
+                                     for key in ("ms", "bf16_ms", "plain_ms", "bound_ms",
+                                                 "tc_bound_ms")}
+                             for label, cnt in per_request.items()}
+    for label, tot in out["b1_per_request"].items():
+        log(f"[auto] {label}: B1's {LAUNCHES_PER_FORWARD} launches of a rank's request "
+            f"(batch {next(iter(per_request[label]))[0]}): kernel "
+            f"{tot['ms']:.3f} ms, bf16 {tot['bf16_ms']:.3f}, plain {tot['plain_ms']:.3f}, "
+            f"bound {tot['bound_ms']:.3f}, tc bound {tot['tc_bound_ms']:.3f} on {smi}")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[auto] B1 vs plain at the {len(rows)} shapes the ranks launched it at and "
+        f"{len(tp4 - shapes)} more at tp 4's Cout/4 (Couts {sorted({s[-1] for s in tp4})}): worst "
+        f"max|err| f32 {worst['float32']:.3e} (rtol=atol=1e-4), bf16 {worst['bf16_rel']:.3e} of "
+        f"max|ref| (bar 2e-2); launches over the phase's asserted requests "
+        f"{out['launches']}; phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3170,6 +3431,9 @@ def main(argv=None) -> int:
     save()
     tables["surface"] = run_surface(torch, np, dev, args.seed, smi, extract_files)
     save()
+    tables["auto"] = run_auto(torch, np, dev, args.seed, smi, regressor, generator, reg_cfg,
+                              proj_cfg, reqs[0])
+    save()
 
     # 17. kernels line
     kernels_line = {"kernels": [{
@@ -3202,6 +3466,8 @@ def main(argv=None) -> int:
             entry["fused_step_launches"] = EXPECTED_FUSED_STEP[entry["name"]]
         if entry["name"] == "dense_conv_fwd":  # the regressor's buffer eval forward, phase 4
             entry["serving_launches"] = serving_b7
+        if entry["name"] in EXPECTED_AUTO_REQUEST:  # phase 16d, summed over the ranks
+            entry["auto_launches"] = tables["auto"]["launches"][entry["name"]]
         if entry["name"] in EXPECTED_DEMO_STEP:  # phase 16c: sphere_demo --train, verify_parity
             entry["demo_launches"] = tables["surface"]["launches"]["demo"][entry["name"]]
             entry["parity_launches"] = tables["surface"]["launches"]["parity"][entry["name"]]

@@ -15,6 +15,12 @@ multiple of the rank count, as the JAX package's does.
 
 A ``RankGroup`` names the group with its rank and size. It is what models,
 losses and train states hold (``group=None``: one device, no collective).
+
+``make_mesh`` lays the ranks out as JAX's 2-D mesh, a (data, model) grid
+with rank = d·tp + m, and gives each rank its ``data`` group (the ranks of
+its model index) and its ``model`` group (the tp contiguous ranks of its
+data index); ``all_gather_channels`` joins the model ranks' channel slices
+of an activation (dist/auto.py's tensor parallelism).
 """
 
 from __future__ import annotations
@@ -27,9 +33,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["DIST_TIMEOUT_S", "RankGroup", "join", "barrier", "leave", "rank_device", "shard_rows",
-           "shard_batch", "replicate", "pad_leading", "all_reduce_mean_", "all_reduce_sum_",
-           "mean_metrics", "global_moments", "global_extremum"]
+__all__ = ["DIST_TIMEOUT_S", "RankGroup", "Mesh", "make_mesh", "all_gather_channels", "join",
+           "barrier", "leave", "rank_device", "shard_rows", "shard_batch", "replicate",
+           "pad_leading", "all_reduce_mean_", "all_reduce_sum_", "mean_metrics",
+           "global_moments", "global_extremum"]
 
 # every collective of a group fails after this long instead of hanging (a
 # rank that died, or one that stopped calling collectives)
@@ -43,6 +50,67 @@ class RankGroup:
     pg: object
     rank: int
     size: int
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A (data, model) grid of ranks, as JAX's ``Mesh((data, model))``:
+    this rank's ``data`` group (one rank per data index, all of its model
+    index) and its ``model`` group (the tp ranks of its data index). None
+    groups: one device."""
+
+    data: RankGroup | None
+    model: RankGroup | None
+
+
+def make_mesh(group: RankGroup | None, model_parallel: int = 1) -> Mesh:
+    """The default group's ranks as a (size / tp, tp) grid, rank = d·tp + m
+    (emlight_tpu/dist/mesh.py::make_mesh's reshape). Every rank must call
+    it, in the same order as its other group creations: each rank creates
+    every subgroup (torch.distributed.new_group), and a rank that created
+    only its own would hang the others. ``group=None`` with tp 1: one
+    device."""
+    tp = model_parallel
+    if group is None:
+        if tp != 1:
+            raise ValueError(f"model_parallel={tp} needs a group of ranks")
+        return Mesh(None, None)
+    if tp < 1 or group.size % tp:
+        raise ValueError(f"{group.size} ranks not divisible by model_parallel={tp}")
+    if group.size != dist.get_world_size():
+        raise ValueError("make_mesh lays out the default group's ranks")
+    dp = group.size // tp
+    d, m = divmod(group.rank, tp)
+    data = [dist.new_group([j * tp + i for j in range(dp)]) for i in range(tp)]
+    model = [dist.new_group([j * tp + i for i in range(tp)]) for j in range(dp)]
+    return Mesh(RankGroup(data[m], d, dp), RankGroup(model[d], m, tp))
+
+
+def all_gather_channels(x: torch.Tensor, model: RankGroup | None, parts: int = 1
+                        ) -> torch.Tensor:
+    """The model ranks' slices of x's last axis joined, in model-rank order:
+    (..., c) on each of tp ranks -> (..., tp·c). With ``parts`` the slices
+    are cut into that many parts each, and each part is joined on its own
+    (part p of the result is part p of every rank's slice, in rank order):
+    the layout of a fused conv split by part. No collective for one model
+    rank. Counted in ``all_gather_channels.calls``."""
+    if model is None or model.size == 1:
+        return x
+    x = x.contiguous()
+    if dist.get_backend(model.pg) == "nccl":
+        out = torch.empty((model.size, *x.shape), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=model.pg)
+    else:
+        outs = [torch.empty_like(x) for _ in range(model.size)]
+        dist.all_gather(outs, x, group=model.pg)
+        out = torch.stack(outs)
+    all_gather_channels.calls += 1
+    lead, c = x.shape[:-1], x.shape[-1]
+    return out.reshape(model.size, *lead, parts, c // parts).movedim(0, -2).reshape(
+        *lead, model.size * c)
+
+
+all_gather_channels.calls = 0
 
 
 def join(device: torch.device, init_method: str | None = None,

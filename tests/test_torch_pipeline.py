@@ -167,7 +167,7 @@ def test_port_imports_nothing_of_jax():
                     "modify_pickles"):
             assert f"emlight_tpu_torch.cli.{cli}" in names, names
         for mod in ("native", "train.loop", "train.data", "train.checkpoint",
-                    "needlets.pipeline", "train.torch_ref"):
+                    "needlets.pipeline", "train.torch_ref", "dist.auto"):
             assert f"emlight_tpu_torch.{mod}" in names, names
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "emlight_tpu",
@@ -178,4 +178,4 @@ def test_port_imports_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 69  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 70  # every module was imported

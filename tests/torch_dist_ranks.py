@@ -14,7 +14,9 @@ compares into WORK/rank{RANK}.pickle. JOBs:
 - ``gan``: tests/test_torch_gan_fused.py's (the G, D and fused steps with
   VGG);
 - ``cli``: each command line of inputs["argvs"] through its CLI's main
-  with --parallel, inside this group.
+  with --parallel, inside this group;
+- ``auto``: tests/test_torch_auto.py's (tensor-parallel serving over the
+  dp2 x tp2 and dp1 x tp4 grids of 4 ranks).
 
 ``start_ranks`` and ``wait_ranks`` are the test side: they start the
 ranks with torchrun's environment and join them with a deadline.
@@ -200,6 +202,55 @@ def check_serving(inp, group, mesh):
                 pipeline=(rows_p, env_p, pred_p))
 
 
+def check_auto(inp, group, mesh):
+    """tests/test_torch_auto.py's multi-rank checks on 4 ranks: both grids
+    built through make_mesh (every rank creates every subgroup), then on
+    each the sharded generator's inference on the rank's data rows, with
+    its grid coordinates, its column convs' slices, σ and split flags, its
+    sliced norms' statistics and the model all-gathers of one forward; the
+    dp2 x tp2 pipeline; and all_gather_channels' layout by part."""
+    import torch
+
+    from emlight_tpu_torch.dist import auto as A
+    from emlight_tpu_torch.train import projector as TP
+    from emlight_tpu_torch.train import regression as TR
+
+    def generator(cfg, sd, grid):
+        gen = TP.make_models(cfg, device="cpu")
+        gen.load_state_dict(sd)
+        return A.auto_shard_state(gen, grid)
+
+    out = {}
+    grids = {name: mesh.make_mesh(group, tp) for name, tp in (("dp2xtp2", 2), ("dp1xtp4", 4))}
+    for name, grid in grids.items():
+        gen = generator(inp["inf_cfg"], inp["inf_sd"], grid)
+        mesh.all_gather_channels.calls = 0
+        env = A.make_auto_inference(inp["inf_cfg"], grid)(
+            gen, A.auto_shard_batch(inp["inf_batch"], grid))
+        gathers = mesh.all_gather_channels.calls
+        with torch.no_grad():
+            convs = {n: dict(kernel=m.kernel, bias=m.bias, u=m.u, v=m.v, split=m.split,
+                             sigma=None if m.u is None else m.sigma())
+                     for n, m in gen.named_modules() if isinstance(m, A.ColumnSphereConv)}
+        norms = {n: m.running_stats() for n, m in gen.named_modules()
+                 if n.endswith("param_free_norm")}
+        out[name] = dict(env=env, gathers=gathers, convs=convs, norms=norms,
+                         data=(grid.data.rank, grid.data.size),
+                         model=(grid.model.rank, grid.model.size))
+    grid = grids["dp2xtp2"]
+    reg = TR.make_model(inp["reg_cfg"], device="cpu")
+    reg.load_state_dict(inp["reg_sd"])
+    gen = generator(inp["pipe_cfg"], inp["pipe_sd"], grid)
+    out["pipeline"] = A.make_auto_pipeline(inp["reg_cfg"], inp["pipe_cfg"], grid)(
+        A.auto_shard_state(reg, grid), gen, A.auto_shard_batch(inp["crop_reg"], grid),
+        A.auto_shard_batch(inp["crop_proj"], grid), "cpu")
+    # two parts of 3 channels per rank, each value naming (part, model rank, channel)
+    m = grid.model.rank
+    x = torch.tensor([[100.0 * p + 10 * m + j for p in range(2) for j in range(3)]])
+    out["by_part"] = mesh.all_gather_channels(x, grid.model, parts=2)
+    return out
+
+
 def run_cli(inp, group, mesh):
     import importlib
 
@@ -244,6 +295,8 @@ def main(work: str, job: str) -> None:
                 ("regression", check_regression), ("serving", check_serving))}
         elif job == "gan":
             out = check_gan(inp, group, mesh)
+        elif job == "auto":
+            out = check_auto(inp, group, mesh)
         else:
             out = run_cli(inp, group, mesh)
         mesh.barrier(group)
