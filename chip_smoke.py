@@ -17,9 +17,10 @@ GT from panorama files (cli.extract_distribution), runs training and
 serving data-parallel (--parallel: one rank at world size 1 on NCCL, two
 ranks on the card over gloo), drives the rest of the single-card surface
 (the SphereCNN demo, reference-.pth parity, needlet GT, the
-spherical-Gaussian fit and the small tools), serves tensor-parallel over
-a (data, model) grid of ranks (dist/auto.py), and holds every hand-written
-kernel against its plain PyTorch version. The regressor runs
+spherical-Gaussian fit and the small tools), serves and trains
+tensor-parallel over a (data, model) grid of ranks (dist/auto.py), and
+holds every hand-written kernel against its plain PyTorch version. The
+regressor runs
 as the JAX package runs it by default: the concat-free buffer forwards
 (nn/densenet_fast.py) in serving and training. Phases, each of which raises
 on failure:
@@ -160,6 +161,22 @@ on failure:
             B1 launch at Cout/tp (the head whole, Cout 3); B1 against its
             plain version at those shapes and at tp 4's Cout/4 (f32 and
             bf16), timed beside its bounds; per-rank request ms
+16e. auto_train tensor-parallel training (dist/auto.py, run_auto_train) at full
+            width: ProjectorConfig() without VGG at batch 8, RegressionConfig()
+            at batch 16, Adam at lr 0; (a) dp1 x tp2, NCCL on two cards
+            where there are two, else two ranks sharing card 0 over gloo;
+            (b) dp2 x tp2 over NCCL where there are four cards, else logged
+            as skipped; each rank's G, D, fused and regression steps
+            (make_auto_projector_steps, make_auto_regression_step): metrics,
+            gradients and BatchNorm statistics, joined over the model ranks,
+            against one card's steps on the global batch (bar from the
+            jitter's change, as 16b), launches per rank and step asserted
+            (one card's), model all-gathers and backward collectives, step
+            ms and peak memory by rank; B1, B3 / B6 and B4 against their
+            plain versions at every shape the ranks launched (Cout/tp) and
+            at tp 4's Cout/4 (f32 and bf16), timed beside their bounds; (c)
+            python -m emlight_tpu_torch.dist.fullsize_check --devices 1
+            --tp 1 (and --devices 4 --tp 2 with four cards), JSON logged
 17. kernels one JSON line with every ported kernel, each with its bound on
             the CUDA cores (bound_ms) and on the tensor cores (tc_bound_ms)
             and its launches in phase 15 (tcli_launches; B7's in serving,
@@ -167,7 +184,8 @@ on failure:
             fused step, fused_step_launches; phase 16c's sphere_demo
             --train 200 and verify_parity runs, demo_launches and
             parity_launches; B1's and B7's in phase 16d over its ranks,
-            auto_launches)
+            auto_launches; B1-B8's in phase 16e over its ranks and steps,
+            auto_train_launches)
 
 The last line of stdout is {"ok": true, "device": {...}}. Without CUDA, or
 run from a directory without the package beside it, it exits non-zero and
@@ -3151,6 +3169,451 @@ def run_auto(torch, np, dev, seed: int, smi, regressor, generator, reg_cfg, proj
     return out
 
 
+# phase 16e: tensor-parallel training (dist/auto.py's step makers) over
+# (data, model) grids at full width: ProjectorConfig() without the VGG term
+# at batch 8 and RegressionConfig() at batch 16, Adam at lr 0 (every step
+# starts from the seeded weights, as the one-card reference). Per rank and
+# step the launches are one card's: every sphere conv at its Cout/tp slice
+# (the head whole), the discriminator and the regressor whole
+AUTO_TRAIN_STEPS = {"G step": EXPECTED_G_STEP, "D step": EXPECTED_D_STEP,
+                    "fused step": EXPECTED_FUSED_STEP, "regression step": EXPECTED_REG_STEP}
+# timed runs of each step per rank, after the recorded one (gloo's steps
+# take seconds on one shared card; one card's reference is timed as NCCL's)
+AUTO_TRAIN_TIMED = {"gloo": 2, "nccl": 5}
+
+
+def auto_train_cfgs():
+    """Phase 16e's configs: ProjectorConfig() at batch DIST_GAN_BATCH without
+    the VGG term and RegressionConfig() (phase 16b's), both Adam at lr 0."""
+    from emlight_tpu_torch.config import ProjectorConfig
+
+    gan = dataclasses.replace(ProjectorConfig(), batch_size=DIST_GAN_BATCH, lr=0.0,
+                              use_vgg_loss=False)
+    return gan, dist_reg_cfg("buffer")
+
+
+def _auto_train_rank(index: int, work: str, n: int, backend: str, seed: int, tp: int) -> None:
+    """Phase 16e: one rank of `n` on the (n / tp, tp) grid of make_mesh
+    (gloo: every rank on card 0; NCCL: rank r on card r). Builds the seeded
+    GAN and regression states over the grid's data group, places them with
+    auto_shard_state and runs make_auto_projector_steps' G, D and fused
+    steps and make_auto_regression_step's step on its data rows of phase
+    16b's global batches, each once with the kernels' launches, the model
+    collectives and the sphere convs' launched shapes read around it (the
+    launches held to one card's), then AUTO_TRAIN_TIMED[backend] more timed
+    (under NCCL then one profiled fused step). Saves the metrics, the
+    averaged gradients and the BatchNorm statistics (the rank's slices,
+    with the channels each split leaf holds), the launches, collectives,
+    shapes, times, peak memory and profile in work/rank{index}.pt."""
+    sys.path.insert(0, HERE)
+    os.environ.update(RANK=str(index), WORLD_SIZE=str(n), LOCAL_RANK=str(index))
+    import numpy as np
+    import torch
+
+    from emlight_tpu_torch.dist import auto as A
+    from emlight_tpu_torch.dist import mesh
+    from emlight_tpu_torch.nn import dense_conv_kernel as DK
+    from emlight_tpu_torch.nn import sphere_conv_kernel as SK
+    from emlight_tpu_torch.train import projector as PJ
+    from emlight_tpu_torch.train import regression as RG
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", index if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    group, created = mesh.join(dev, "file://" + os.path.join(work, "store"),
+                               timeout_s=DIST_TIMEOUT_S, backend=backend)
+    grid = mesh.make_mesh(group, tp)
+    gan_cfg, reg_cfg = auto_train_cfgs()
+    wrappers = {**{k: getattr(DK, k) for k in EXPECTED_REG_STEP},
+                **{k: getattr(SK, k) for k in EXPECTED_G_STEP}}
+    out = {"launches": {}, "collectives": {}, "metrics": {}, "grads": {}, "stats": {},
+           "ms": {}, "peak_gib": {}, "shapes": set(), "data": (grid.data.rank, grid.data.size),
+           "model": (grid.model.rank, grid.model.size)}
+
+    def on_card(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in A.auto_shard_batch(
+            batch, grid).items()}
+
+    def leaves(named):
+        return {k: t.detach().cpu().clone() for k, t in named}
+
+    gan = A.auto_shard_state(PJ.create_state(gan_cfg, device=dev, seed=seed + 170,
+                                             group=grid.data), grid)
+    reg = A.auto_shard_state(RG.create_state(reg_cfg, device=dev, seed=seed + 171,
+                                             group=grid.data), grid)
+    out["sliced"] = {f"G.{n}.{leaf}": m.channels.cpu() for n, m in gan.g.named_modules()
+                     if isinstance(m, A.ColumnSphereConv) and m.split
+                     for leaf in ("kernel", "bias", "u")}
+
+    def record(mod, inp, _out):  # (kind, (B, H, W, Cin, Cout on this rank, stride))
+        shape = (*inp[0].shape[:3], mod.in_channels, mod.kernel.shape[-1], mod.stride)
+        out["shapes"].add(("fwd", shape))
+        if torch.is_grad_enabled():
+            if inp[0].requires_grad:
+                out["shapes"].add(("dx", shape))
+            if mod.kernel.requires_grad:
+                out["shapes"].add(("dk", shape))
+
+    hooks = [m.register_forward_hook(record) for m in gan.g.modules()
+             if isinstance(m, A.ColumnSphereConv)]
+    g_step, d_step, fused = A.make_auto_projector_steps(gan_cfg, grid)
+    reg_step = A.make_auto_regression_step(reg_cfg, grid)
+    gan_batch = on_card(dist_gan_batch(np, gan_cfg, seed))
+    reg_batch = on_card(dist_reg_batch(np, reg_cfg, seed))
+    steps = {"G step": (lambda: g_step(gan, gan_batch)[0], [("G", gan.g)]),
+             "D step": (lambda: d_step(gan, gan_batch), [("D", gan.d)]),
+             "fused step": (lambda: fused(gan, gan_batch)[0], [("G", gan.g), ("D", gan.d)]),
+             "regression step": (lambda: reg_step(reg, reg_batch), [("regressor", reg.model)])}
+    for name, (fn, nets) in steps.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for w_ in wrappers.values():
+            w_.launches = 0
+        mesh.all_gather_channels.calls = mesh.all_gather_channels.grad_calls = 0
+        mesh.split_channels.grad_calls = 0
+        metrics = fn()
+        torch.cuda.synchronize()
+        out["peak_gib"][name] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        expected = AUTO_TRAIN_STEPS[name]
+        got = {k: wrappers[k].launches for k in expected}
+        if got != expected:
+            raise AssertionError(f"rank {index}: {name} launches {got}, expected {expected}")
+        out["launches"][name] = got
+        out["collectives"][name] = (mesh.all_gather_channels.calls,
+                                    mesh.all_gather_channels.grad_calls,
+                                    mesh.split_channels.grad_calls)
+        out["metrics"][name] = {k: v.item() for k, v in metrics.items()}
+        out["grads"][name] = leaves((f"{net}.{k}", p.grad) for net, mod in nets
+                                    for k, p in mod.named_parameters())
+        out["stats"][name] = leaves((f"{net}.{k}", t) for net, mod in nets
+                                    for k, t in mod.named_buffers() if k.endswith(("mean", "var")))
+        if name == "G step":
+            for h in hooks:
+                h.remove()
+    # the times, once every step was recorded; Adam at lr 0 keeps the weights
+    for name, (fn, _) in steps.items():
+        mesh.barrier(group)
+        out["ms"][name] = cuda_ms(torch, fn, warmup=0, iters=AUTO_TRAIN_TIMED[backend])
+    if backend == "nccl":  # one card per rank: where a fused step's time goes
+        mesh.barrier(group)
+        out["profile"] = device_profile(torch, steps["fused step"][0], top=10 ** 6)
+    mesh.barrier(group)
+    mesh.leave(created)
+    torch.save(out, os.path.join(work, f"rank{index}.pt"))
+
+
+def auto_train_references(torch, np, dev, seed: int) -> dict:
+    """Phase 16e's one-card steps on the global batches from the ranks'
+    seeded states (G, D and fused steps on one state, as the ranks take
+    them; the regression step), and again on the jittered batches:
+    {(run, step): (metrics, grads, BatchNorm statistics)} with run
+    "single" or "jittered"; and {("ms" or "peak_gib", step): ...}, the
+    single run's peak memory and, after every step was recorded,
+    AUTO_TRAIN_TIMED["nccl"] more of each timed (CUDA events, median)."""
+    from emlight_tpu_torch.train import projector as PJ
+    from emlight_tpu_torch.train import regression as RG
+
+    gan_cfg, reg_cfg = auto_train_cfgs()
+    out = {}
+
+    def leaves(named):
+        return {k: t.detach().cpu().clone() for k, t in named}
+
+    for run, jitter in (("single", False), ("jittered", True)):
+        gan = PJ.create_state(gan_cfg, device=dev, seed=seed + 170)
+        reg = RG.create_state(reg_cfg, device=dev, seed=seed + 171)
+        gan_batch = dist_gan_batch(np, gan_cfg, seed, jitter)
+        reg_batch = dist_reg_batch(np, reg_cfg, seed, jitter)
+        steps = {"G step": (lambda: PJ.generator_step(gan, gan_batch)[0], [("G", gan.g)]),
+                 "D step": (lambda: PJ.discriminator_step(gan, gan_batch), [("D", gan.d)]),
+                 "fused step": (lambda: PJ.fused_gan_step(gan, gan_batch)[0],
+                                [("G", gan.g), ("D", gan.d)]),
+                 "regression step": (lambda: RG.train_step(reg, reg_batch),
+                                     [("regressor", reg.model)])}
+        for name, (fn, nets) in steps.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            metrics = fn()
+            torch.cuda.synchronize()
+            if run == "single":
+                out["peak_gib", name] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            out[run, name] = (
+                {k: v.item() for k, v in metrics.items()},
+                leaves((f"{net}.{k}", p.grad) for net, mod in nets
+                       for k, p in mod.named_parameters()),
+                leaves((f"{net}.{k}", t) for net, mod in nets
+                       for k, t in mod.named_buffers() if k.endswith(("mean", "var"))))
+        if run == "single":
+            for name, (fn, _) in steps.items():
+                out["ms", name] = cuda_ms(torch, fn, warmup=0, iters=AUTO_TRAIN_TIMED["nccl"])
+        del gan, reg
+    torch.cuda.empty_cache()
+    return out
+
+
+def join_model_ranks(torch, ranks: list, tp: int, leaves, ref: dict, where: str) -> list:
+    """Each data index's model ranks' copies of every leaf joined into the
+    whole leaf (``ref`` gives the shapes): a leaf of the whole's shape must
+    be equal on every model rank of it; a split one is scattered to the
+    channels each rank holds (``sliced``, else a contiguous slice).
+    Returns one {name: leaf} per data index."""
+    out = []
+    for d in range(len(ranks) // tp):
+        group = ranks[d * tp:(d + 1) * tp]
+        joined = {}
+        for name, r in ref.items():
+            got = [leaves(rk)[name] for rk in group]
+            if got[0].shape == r.shape:
+                if any(not torch.equal(g, got[0]) for g in got[1:]):
+                    raise AssertionError(f"{where}: the model ranks hold different {name}")
+                joined[name] = got[0]
+                continue
+            full = torch.full(r.shape, float("nan"))
+            for m, (rk, g) in enumerate(zip(group, got)):
+                idx = rk["sliced"].get(name)
+                if idx is None:
+                    per = r.shape[-1] // tp
+                    idx = torch.arange(m * per, (m + 1) * per)
+                full[..., idx] = g
+            if full.isnan().any():
+                raise AssertionError(f"{where}: the model ranks' slices miss channels of {name}")
+            joined[name] = full
+        out.append(joined)
+    return out
+
+
+def hold_auto_train_to_single(torch, ranks: list, tp: int, ref: dict, where: str) -> list:
+    """Every rank's metrics within 1e-4 relative of one card's and equal on
+    its model ranks; each data index's gradients and BatchNorm statistics,
+    joined over its model ranks, every leaf within the larger of GRAD_REL
+    and GRAD_SPREAD times one card's own spread under JITTER (phase 9's
+    bar, as phase 16b). Returns one summary per step."""
+    summary = []
+    for name in AUTO_TRAIN_STEPS:
+        metrics, grads, stats = ref["single", name]
+        err = 0.0
+        for r, rk in enumerate(ranks):
+            if rk["metrics"][name] != ranks[r - r % tp]["metrics"][name]:
+                raise AssertionError(f"{where} {name}: the model ranks' metrics differ")
+            err = max(err, *(abs(v - metrics[k]) / max(abs(metrics[k]), 1e-6)
+                             for k, v in rk["metrics"][name].items()))
+        if err > 1e-4:
+            raise AssertionError(f"{where} {name}: metrics {ranks[0]['metrics'][name]} against "
+                                 f"one card's {metrics}")
+        worst = {}
+        for what, mine, whole, jittered in (("grads", "grads", grads, ref["jittered", name][1]),
+                                            ("stats", "stats", stats, ref["jittered", name][2])):
+            if not whole:
+                continue
+            spread = grad_ratios(jittered, whole)
+            bar = max(GRAD_REL, GRAD_SPREAD * spread[-1][0])
+            for joined in join_model_ranks(torch, ranks, tp, lambda rk: rk[mine][name], whole,
+                                           f"{where} {name}"):
+                got = grad_ratios(joined, whole)
+                bad = [g for g in got if g[0] > bar]
+                if bad:
+                    raise AssertionError(f"{where} {name}: {len(bad)} of {len(got)} {what} "
+                                         f"leaves above {bar:.3e} of their scale; worst "
+                                         f"{bad[-3:]}")
+                worst[what] = max(worst.get(what, (0.0, "")), got[-1])
+            worst[what + "_bar"] = bar
+        summary.append(
+            f"{name}: metrics within {err:.2e}, worst gradient leaf {worst['grads'][0]:.3e} "
+            f"({worst['grads'][1]}, bar {worst['grads_bar']:.3e})"
+            + (f", worst BatchNorm statistic {worst['stats'][0]:.3e} (bar "
+               f"{worst['stats_bar']:.3e})" if "stats" in worst else "")
+            + f", launches {ranks[0]['launches'][name]} on each rank, model collectives "
+            f"(all-gathers, backward reduce-scatters, backward all-gathers) "
+            f"{ranks[0]['collectives'][name]}, "
+            + "/".join(f"{rk['ms'][name]:.3f}" for rk in ranks) + f" ms by rank (one card "
+            f"{ref['ms', name]:.3f}), peak "
+            + "/".join(f"{rk['peak_gib'][name]:.3f}" for rk in ranks) + f" GiB by rank (one "
+            f"card {ref['peak_gib', name]:.3f})")
+    return summary
+
+
+def run_auto_train(torch, np, dev, seed: int, smi) -> dict:
+    """Phase 16e: tensor-parallel training (dist/auto.py) at full width.
+
+    (a) dp1 x tp2: two ranks (_auto_train_rank) over NCCL on two cards
+    where there are two, else sharing card 0 over gloo with CUDA tensors;
+    (b) dp2 x tp2 over NCCL where there are four cards, else logged as
+    skipped. Each run's G, D, fused and regression steps are held to one
+    card's on the same global batch (auto_train_references; the bar from
+    the jitter's change, as phase 16b), their launches per rank and step
+    asserted (AUTO_TRAIN_STEPS), the model collectives, per-rank step times
+    and peak memory logged. Then B1, B3 or B6 (by the map's pixels, as the
+    path routes dx) and B4 against their plain versions (f32 with TF32 off,
+    and bf16) at every shape the ranks launched them at, timed beside their
+    bounds, and at the same convs' Cout/4 (tp 4). (c) python -m
+    emlight_tpu_torch.dist.fullsize_check --devices 1 --tp 1 on this card,
+    and --devices 4 --tp 2 where there are four cards; their JSON lines
+    logged. Returns the launches summed over every rank and step of (a)
+    and (b), the times, memory and per-shape rows."""
+    import shutil
+    import tempfile
+
+    from emlight_tpu_torch.nn import sphere_conv_kernel as SK
+    from emlight_tpu_torch.nn.sphere_conv import sphere_conv_plain
+    from emlight_tpu_torch.nn.sphere_conv_vjp import dk_plain, dx_plain, inverse_tables
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    work = os.path.join(HERE, "build", "auto_train_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    runs = [("dp1 x tp2", 2, 2, "nccl" if n_cards >= 2 else "gloo")]
+    if n_cards >= 4:
+        runs.append(("dp2 x tp2", 4, 2, "nccl"))
+    else:
+        log(f"[auto_train] (b) dp2 x tp2 skipped: {n_cards} card(s), NCCL over four needs 4")
+    names = sorted({k for steps in AUTO_TRAIN_STEPS.values() for k in steps})
+    out: dict = {"launches": {k: 0 for k in names}, "ms": {}, "peak_gib": {}}
+    shapes, ref = set(), None
+    for label, n, tp, backend in runs:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(torch, tempfile.mkdtemp(dir=work), n, backend, seed,
+                            _auto_train_rank, (tp,))
+        ranks_s = time.perf_counter() - t0
+        if ref is None:
+            torch.backends.cudnn.deterministic = True
+            ref = auto_train_references(torch, np, dev, seed)
+            torch.backends.cudnn.deterministic = False
+        summary = hold_auto_train_to_single(torch, ranks, tp, ref, label)
+        for rk in ranks:
+            shapes |= rk["shapes"]
+            for launches in rk["launches"].values():
+                for k, v in launches.items():
+                    out["launches"][k] += v
+        out["ms"][label] = {name: [rk["ms"][name] for rk in ranks] for name in AUTO_TRAIN_STEPS}
+        out["peak_gib"][label] = {name: [rk["peak_gib"][name] for rk in ranks]
+                                  for name in AUTO_TRAIN_STEPS}
+        out["ms"]["one card"] = {name: ref["ms", name] for name in AUTO_TRAIN_STEPS}
+        out["peak_gib"]["one card"] = {name: ref["peak_gib", name] for name in AUTO_TRAIN_STEPS}
+        prof = ranks[0].get("profile")
+        if prof is not None:
+            wall_ms, busy_ms, ranked = prof
+            # NCCL's device kernels (torch's "nccl:..." ranges over them are
+            # device events too: not counted twice)
+            nccl_ms = sum(ms for name, ms, _ in ranked
+                          if "nccl" in name.lower() and not name.startswith("nccl:"))
+            out.setdefault("profile", {})[label] = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                                                    "nccl_ms": nccl_ms}
+            log(f"[auto_train] {label}: rank 0's fused step under the profiler {wall_ms:.3f} ms, "
+                f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}, NCCL "
+                f"kernels {nccl_ms:.3f} ms ({nccl_ms / busy_ms:.4f} of busy); top device work:")
+            for name, ms, k in ranked[:8]:
+                log(f"[auto_train]   {ms:9.3f} ms  {ms / busy_ms:.4f}  x{k:<4d} {name[:90]}")
+        log(f"[auto_train] ({'a' if n == 2 else 'b'}) {label} over {backend}"
+            + (" (two ranks sharing card 0, CUDA tensors)" if backend == "gloo" else "")
+            + f" on {smi}, against one card's steps on the global batches (Adam at lr 0): "
+            + "; ".join(summary) + f"; ranks took {ranks_s:.1f} s"
+            + ("; not a scaling figure: gloo stages every collective through the host and "
+               "the ranks share one card" if backend == "gloo" else ""))
+        del ranks
+    del ref
+
+    # the training kernels against their plain versions at every shape the
+    # ranks launched them at, timed, and at the same convs' Cout/4 (tp 4)
+    def kernel_of(kind, shape):
+        if kind == "fwd":
+            return "sphere_conv_s1"
+        if kind == "dk":
+            return "sphere_conv_dk"
+        return ("sphere_conv_dx_s1" if shape[1] * shape[2] >= SK.UMAJOR_MIN_PIXELS
+                else "sphere_conv_dx_s1_triple")
+
+    # the convs' whole Couts (both runs are tp 2; the head, Cout 3, runs whole)
+    whole = {(kind, s[:4] + (s[4] * 2,) + s[5:]) for kind, s in shapes if s[4] != 3}
+    tp4 = {(kind, s[:4] + (s[4] // 4,) + s[5:]) for kind, s in whole if s[4] % 4 == 0}
+    gen = torch.Generator(device=dev).manual_seed(seed + 172)
+    worst: dict = {}
+    rows = []
+    for kind, shape in sorted(shapes | tp4):
+        b, h, w, cin, cout, stride = shape
+        name = kernel_of(kind, shape)
+        x = torch.rand(b, h, w, cin, device=dev, generator=gen)
+        k = torch.randn(3, 3, cin, cout, device=dev, generator=gen) / (9 * cin) ** 0.5
+        bias = torch.randn(cout, device=dev, generator=gen) * 0.1
+        g = torch.randn(b, h, w, cout, device=dev, generator=gen)
+        if kind == "dk":
+            g /= (b * h * w) ** 0.5  # as phase 7: dK stays O(1)
+        wrapper = getattr(SK, name)
+
+        def pair(x, k, g):
+            if kind == "fwd":
+                return lambda: wrapper(x, k, bias), lambda: sphere_conv_plain(x, k, bias)
+            if kind == "dx":
+                return (lambda: wrapper(g, k, tuple(x.shape)),
+                        lambda: dx_plain(g, k, tuple(x.shape)))
+            return lambda: wrapper(x, g), lambda: dk_plain(x, g)
+
+        fns = {}
+        for dt in (torch.float32, torch.bfloat16):
+            kern, plain = fns[dt] = pair(x.to(dt), k.to(dt), g.to(dt))
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            w_ = worst.setdefault(name, {"float32": 0.0, "bf16_rel": 0.0})
+            if dt == torch.float32:
+                rtol, atol = (1e-3, 1e-4) if kind == "dk" else (1e-4, 1e-4)
+                torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                           msg=lambda m: f"{name} at {shape}: {m}")
+                w_["float32"] = max(w_["float32"], err)
+            else:
+                scale = want.abs().max().item()
+                if err > 2e-2 * scale:
+                    raise AssertionError(f"{name} bf16 at {shape}: {err} > 2e-2 * {scale}")
+                w_["bf16_rel"] = max(w_["bf16_rel"], err / scale)
+        if (kind, shape) not in shapes:
+            continue
+        fanin = inverse_tables(h, w, stride)[-1] if kind == "dx" else 64
+        bound, by = kernel_bound_ms(kind, b, h, w, cin, cout, stride, "float32", fanin)
+        tcb, _ = kernel_bound_ms(kind, b, h, w, cin, cout, stride, "float32", fanin, tc=True)
+        rows.append({"kernel": name, "kind": kind, "shape": list(shape),
+                     "ms": cuda_ms(torch, fns[torch.float32][0], warmup=1, iters=5),
+                     "bf16_ms": cuda_ms(torch, fns[torch.bfloat16][0], warmup=1, iters=5),
+                     "plain_ms": cuda_ms(torch, fns[torch.float32][1], warmup=1, iters=5),
+                     "bound_ms": bound, "bound_by": by, "tc_bound_ms": tcb})
+        r = rows[-1]
+        log(f"[auto_train] {name} B{b} {h}x{w} {cin}->{cout}: kernel {r['ms']:.4f} ms, bf16 "
+            f"{r['bf16_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}), "
+            f"tc bound {tcb:.4f} ms")
+    del x, k, g
+    torch.cuda.empty_cache()
+    out["shapes"], out["worst"] = rows, worst
+    log(f"[auto_train] {len(rows)} (kernel, shape) pairs the ranks launched and "
+        f"{len(tp4 - shapes)} more at tp 4's Cout/4 against the plain versions: "
+        + "; ".join(f"{n} f32 {w_['float32']:.3e} (max|err|), bf16 {w_['bf16_rel']:.3e} of "
+                    f"max|ref| (bar 2e-2)" for n, w_ in sorted(worst.items())))
+
+    # (c) fullsize_check on this card, and over four where there are four
+    out["fullsize"] = {}
+    for devices, tp in ((1, 1), (4, 2)) if n_cards >= 4 else ((1, 1),):
+        t0 = time.perf_counter()
+        path = os.path.join(work, f"fullsize_{devices}.json")
+        proc = subprocess.run([sys.executable, "-m", "emlight_tpu_torch.dist.fullsize_check",
+                               "--devices", str(devices), "--tp", str(tp), "--json", path],
+                              cwd=HERE, timeout=600, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"fullsize_check --devices {devices} --tp {tp} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        with open(path) as f:
+            result = json.load(f)
+        out["fullsize"][f"{devices}x{tp}"] = result
+        log(f"[auto_train] (c) fullsize_check --devices {devices} --tp {tp} on {smi} "
+            f"({time.perf_counter() - t0:.1f} s with its start): {json.dumps(result)}")
+    if n_cards < 4:
+        log(f"[auto_train] (c) fullsize_check --devices 4 --tp 2 skipped: {n_cards} card(s)")
+    shutil.rmtree(work, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[auto_train] launches over the phase's asserted steps {out['launches']}; phase took "
+        f"{out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3434,6 +3897,8 @@ def main(argv=None) -> int:
     tables["auto"] = run_auto(torch, np, dev, args.seed, smi, regressor, generator, reg_cfg,
                               proj_cfg, reqs[0])
     save()
+    tables["auto_train"] = run_auto_train(torch, np, dev, args.seed, smi)
+    save()
 
     # 17. kernels line
     kernels_line = {"kernels": [{
@@ -3468,6 +3933,8 @@ def main(argv=None) -> int:
             entry["serving_launches"] = serving_b7
         if entry["name"] in EXPECTED_AUTO_REQUEST:  # phase 16d, summed over the ranks
             entry["auto_launches"] = tables["auto"]["launches"][entry["name"]]
+        if entry["name"] in tables["auto_train"]["launches"]:  # phase 16e, over the ranks
+            entry["auto_train_launches"] = tables["auto_train"]["launches"][entry["name"]]
         if entry["name"] in EXPECTED_DEMO_STEP:  # phase 16c: sphere_demo --train, verify_parity
             entry["demo_launches"] = tables["surface"]["launches"]["demo"][entry["name"]]
             entry["parity_launches"] = tables["surface"]["launches"]["parity"][entry["name"]]

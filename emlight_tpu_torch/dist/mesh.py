@@ -18,9 +18,15 @@ losses and train states hold (``group=None``: one device, no collective).
 
 ``make_mesh`` lays the ranks out as JAX's 2-D mesh, a (data, model) grid
 with rank = d·tp + m, and gives each rank its ``data`` group (the ranks of
-its model index) and its ``model`` group (the tp contiguous ranks of its
-data index); ``all_gather_channels`` joins the model ranks' channel slices
-of an activation (dist/auto.py's tensor parallelism).
+its model index), its ``model`` group (the tp contiguous ranks of its data
+index) and the whole grid (``world``). dist/auto.py's tensor parallelism
+moves activations between the model ranks with two differentiable
+collectives: ``all_gather_channels`` joins their channel slices (its
+backward sums the readers' partial cotangents over ``model`` and keeps the
+rank's slice: a reduce-scatter), ``split_channels`` takes the rank's slice
+(its backward all-gathers the cotangent). ``mean_grads_`` averages a train
+step's gradients on such a grid: the parameters split over ``model``
+(``model_split``) over ``data``, the whole ones over the grid.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["DIST_TIMEOUT_S", "RankGroup", "Mesh", "make_mesh", "all_gather_channels", "join",
+__all__ = ["DIST_TIMEOUT_S", "RankGroup", "Mesh", "make_mesh", "all_gather_channels",
+           "split_channels", "mark_model_split", "is_model_split", "mean_grads_", "join",
            "barrier", "leave", "rank_device", "shard_rows", "shard_batch", "replicate",
            "pad_leading", "all_reduce_mean_", "all_reduce_sum_", "mean_metrics",
            "global_moments", "global_extremum"]
@@ -56,11 +63,12 @@ class RankGroup:
 class Mesh:
     """A (data, model) grid of ranks, as JAX's ``Mesh((data, model))``:
     this rank's ``data`` group (one rank per data index, all of its model
-    index) and its ``model`` group (the tp ranks of its data index). None
-    groups: one device."""
+    index), its ``model`` group (the tp ranks of its data index) and the
+    whole grid. None groups: one device."""
 
     data: RankGroup | None
     model: RankGroup | None
+    world: RankGroup | None = None
 
 
 def make_mesh(group: RankGroup | None, model_parallel: int = 1) -> Mesh:
@@ -83,19 +91,11 @@ def make_mesh(group: RankGroup | None, model_parallel: int = 1) -> Mesh:
     d, m = divmod(group.rank, tp)
     data = [dist.new_group([j * tp + i for j in range(dp)]) for i in range(tp)]
     model = [dist.new_group([j * tp + i for i in range(tp)]) for j in range(dp)]
-    return Mesh(RankGroup(data[m], d, dp), RankGroup(model[d], m, tp))
+    return Mesh(RankGroup(data[m], d, dp), RankGroup(model[d], m, tp), group)
 
 
-def all_gather_channels(x: torch.Tensor, model: RankGroup | None, parts: int = 1
-                        ) -> torch.Tensor:
-    """The model ranks' slices of x's last axis joined, in model-rank order:
-    (..., c) on each of tp ranks -> (..., tp·c). With ``parts`` the slices
-    are cut into that many parts each, and each part is joined on its own
-    (part p of the result is part p of every rank's slice, in rank order):
-    the layout of a fused conv split by part. No collective for one model
-    rank. Counted in ``all_gather_channels.calls``."""
-    if model is None or model.size == 1:
-        return x
+def _gather(x: torch.Tensor, model: RankGroup, parts: int) -> torch.Tensor:
+    """The model ranks' slices of x's last axis joined part by part."""
     x = x.contiguous()
     if dist.get_backend(model.pg) == "nccl":
         out = torch.empty((model.size, *x.shape), dtype=x.dtype, device=x.device)
@@ -104,13 +104,140 @@ def all_gather_channels(x: torch.Tensor, model: RankGroup | None, parts: int = 1
         outs = [torch.empty_like(x) for _ in range(model.size)]
         dist.all_gather(outs, x, group=model.pg)
         out = torch.stack(outs)
-    all_gather_channels.calls += 1
     lead, c = x.shape[:-1], x.shape[-1]
     return out.reshape(model.size, *lead, parts, c // parts).movedim(0, -2).reshape(
         *lead, model.size * c)
 
 
+def _reduce_scatter(t: torch.Tensor, model: RankGroup) -> torch.Tensor:
+    """t (tp, ...) summed over the model ranks; the rank's entry of it:
+    NCCL's reduce-scatter, or an all-reduce of a copy on gloo."""
+    if dist.get_backend(model.pg) == "nccl":
+        t = t.contiguous()
+        out = torch.empty(t.shape[1:], dtype=t.dtype, device=t.device)
+        dist.reduce_scatter_tensor(out, t, group=model.pg)
+        return out
+    t = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(t, group=model.pg)
+    return t[model.rank]
+
+
+class _GatherChannels(torch.autograd.Function):
+    """all_gather_channels with its backward: part by part, a cotangent its
+    readers left partial is summed over ``model`` before the rank keeps its
+    slice (a reduce-scatter); one they left whole is sliced alone."""
+
+    @staticmethod
+    def forward(ctx, x, model, parts, summed):
+        ctx.model, ctx.parts, ctx.summed = model, parts, summed
+        return _gather(x, model, parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        model, parts, summed = ctx.model, ctx.parts, ctx.summed
+        lead = g.shape[:-1]
+        g = g.reshape(*lead, parts, model.size, -1)
+        mine = g.select(-2, model.rank)  # (..., parts, c / parts)
+        sel = [p for p in range(parts) if summed[p]]
+        if sel:
+            part = g if len(sel) == parts else g[..., sel, :, :]
+            red = _reduce_scatter(part.movedim(-2, 0), model)
+            all_gather_channels.grad_calls += 1
+            if len(sel) == parts:
+                mine = red
+            else:
+                mine = mine.clone()
+                mine[..., sel, :] = red
+        return mine.reshape(*lead, -1), None, None, None
+
+
+def all_gather_channels(x: torch.Tensor, model: RankGroup | None, parts: int = 1,
+                        partial_grad: bool | tuple[bool, ...] = True) -> torch.Tensor:
+    """The model ranks' slices of x's last axis joined, in model-rank order:
+    (..., c) on each of tp ranks -> (..., tp·c). With ``parts`` the slices
+    are cut into that many parts each, and each part is joined on its own
+    (part p of the result is part p of every rank's slice, in rank order):
+    the layout of a fused conv split by part. No collective for one model
+    rank. Counted in ``all_gather_channels.calls``.
+
+    Differentiable. ``partial_grad`` (one flag, or one per part) says how
+    the result is read. True: by convs split over ``model`` (Cout/tp each),
+    whose dx on each rank is a partial sum of the whole dx, so the backward
+    sums the cotangent over ``model`` and keeps the rank's slice (a
+    reduce-scatter, counted in ``all_gather_channels.grad_calls``). False:
+    by an op that runs whole on every rank (the head's conv), whose
+    cotangent is already the whole one on every rank: the backward keeps
+    the rank's slice, with no collective (summing it would make the
+    gradient tp times too large)."""
+    if model is None or model.size == 1:
+        return x
+    all_gather_channels.calls += 1
+    summed = (partial_grad,) * parts if isinstance(partial_grad, bool) else tuple(partial_grad)
+    if len(summed) != parts:
+        raise ValueError(f"{len(summed)} partial_grad flags for {parts} parts")
+    return _GatherChannels.apply(x, model, parts, summed)
+
+
 all_gather_channels.calls = 0
+all_gather_channels.grad_calls = 0
+
+
+class _SplitChannels(torch.autograd.Function):
+    """split_channels with its backward: the all-gather of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, model):
+        ctx.model = model
+        per = x.shape[-1] // model.size
+        return x[..., model.rank * per:(model.rank + 1) * per].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        split_channels.grad_calls += 1
+        return _gather(g, ctx.model, 1), None
+
+
+def split_channels(x: torch.Tensor, model: RankGroup | None) -> torch.Tensor:
+    """The rank's contiguous slice r of tp of x's last axis, where x is
+    whole on every model rank. Differentiable: each rank's cotangent is
+    that of its slice, so the backward all-gathers them into the whole
+    cotangent on every rank (counted in ``split_channels.grad_calls``)."""
+    if model is None or model.size == 1:
+        return x
+    if x.shape[-1] % model.size:
+        raise ValueError(f"{x.shape[-1]} channels do not split over {model.size} model ranks")
+    return _SplitChannels.apply(x, model)
+
+
+split_channels.grad_calls = 0
+
+
+def mark_model_split(p: torch.Tensor) -> None:
+    """Mark a parameter as this rank's slice of one split over ``model``
+    (its gradient is averaged over ``data`` and its squares summed over
+    ``model`` in the global norm)."""
+    p.model_split = True
+
+
+def is_model_split(p: torch.Tensor) -> bool:
+    return getattr(p, "model_split", False)
+
+
+@torch.no_grad()
+def mean_grads_(params, group: RankGroup | None, mesh: Mesh | None = None) -> None:
+    """Average the parameters' gradients over the ranks in place: over
+    `group` (data parallelism); on a (data, model) ``mesh`` (dist/auto.py),
+    the slices split over ``model`` (``is_model_split``) over ``mesh.data``
+    and the parameters that are whole on every model rank over the whole
+    grid. That is the same mean as over ``data`` (their gradients agree on
+    the model ranks up to the order of float sums), and it leaves them
+    equal bit for bit on every rank."""
+    if mesh is None:
+        all_reduce_mean_((p.grad for p in params), group)
+        return
+    params = list(params)
+    all_reduce_mean_((p.grad for p in params if is_model_split(p)), mesh.data)
+    all_reduce_mean_((p.grad for p in params if not is_model_split(p)), mesh.world)
 
 
 def join(device: torch.device, init_method: str | None = None,

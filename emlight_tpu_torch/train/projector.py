@@ -34,6 +34,13 @@ use_vae noise is drawn for the global batch and sliced to the rank's rows.
 G's BatchNorm statistics and both nets' u, v stay equal on every rank
 without a collective: the statistics are the global batch's and the power
 iteration reads the weights only.
+
+Tensor-parallel training (dist/auto.py): ``auto_shard_state`` places a
+state built with ``group=mesh.data`` on a (data, model) grid and sets
+``state.mesh``. The steps then average the gradients of G's slices over
+``data`` and those of the whole parameters over the grid
+(dist/mesh.py::mean_grads_), and clip by the norm of the whole gradients
+(train/optim.py::grads_global_norm over ``model``).
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ import torch
 
 from ..config import ProjectorConfig
 from ..core.device import resolve_device
-from ..dist.mesh import all_reduce_mean_, mean_metrics, shard_rows
+from ..dist.mesh import mean_grads_, mean_metrics, shard_rows
 from ..losses.gan import cosine_loss, feature_matching_loss, gan_loss, kld_loss
 from ..nn.discriminator import MultiscaleDiscriminator
 from ..nn.spade import SPADEGenerator
@@ -129,9 +136,10 @@ def inference(generator: SPADEGenerator, batch: dict, cfg: ProjectorConfig) -> t
 
 @dataclasses.dataclass
 class ProjectorState:
-    """The two models, their Adam optimizers, the step counts and the ranks'
-    group (None on one device). The modules and optimizers are updated in
-    place by the steps."""
+    """The two models, their Adam optimizers, the step counts, the ranks'
+    group (None on one device) and the (data, model) grid dist/auto.py
+    placed the state on (None otherwise). The modules and optimizers are
+    updated in place by the steps."""
 
     cfg: ProjectorConfig
     g: SPADEGenerator
@@ -143,6 +151,7 @@ class ProjectorState:
     step: int = 0      # generator updates (the JAX state's step)
     d_step: int = 0    # discriminator updates
     group: object = None
+    mesh: object = None
 
 
 def _lr_schedule(base_lr: float, cfg: ProjectorConfig,
@@ -208,9 +217,10 @@ def _run_d(state: ProjectorState, guide: torch.Tensor, fake: torch.Tensor, real:
     return pred_fake, pred_real
 
 
-def _update(opt: torch.optim.Adam, lr: float, params, clip: float) -> None:
+def _update(state: ProjectorState, opt: torch.optim.Adam, lr: float, params) -> None:
+    clip = state.cfg.clip_grad_norm
     if clip and clip > 0:
-        clip_by_global_norm(params, clip)
+        clip_by_global_norm(params, clip, None if state.mesh is None else state.mesh.model)
     for group in opt.param_groups:
         group["lr"] = lr
     opt.step()
@@ -280,8 +290,8 @@ def generator_step(state: ProjectorState, batch: dict, vgg: VGG19Features | None
     state.opt_g.zero_grad(set_to_none=True)
     fake, losses, total = _generator_losses(state, b, guide, vgg, eps)
     total.backward()
-    all_reduce_mean_((p.grad for p in g.parameters()), state.group)
-    _update(state.opt_g, state.lr_g(state.step), g.parameters(), cfg.clip_grad_norm)
+    mean_grads_(g.parameters(), state.group, state.mesh)
+    _update(state, state.opt_g, state.lr_g(state.step), g.parameters())
     state.step += 1
     return _detached({**losses, "loss_G": total}, state.group), fake.detach()
 
@@ -306,8 +316,8 @@ def discriminator_step(state: ProjectorState, batch: dict,
     state.opt_d.zero_grad(set_to_none=True)
     d_fake, d_real, total = _discriminator_losses(state, guide, fake, b["warped"])
     total.backward()
-    all_reduce_mean_((p.grad for p in d.parameters()), state.group)
-    _update(state.opt_d, state.lr_d(state.d_step), d.parameters(), cfg.clip_grad_norm)
+    mean_grads_(d.parameters(), state.group, state.mesh)
+    _update(state, state.opt_d, state.lr_d(state.d_step), d.parameters())
     state.d_step += 1
     return _detached({"D_Fake": d_fake, "D_real": d_real, "loss_D": total}, state.group)
 
@@ -344,10 +354,9 @@ def fused_gan_step(state: ProjectorState, batch: dict, vgg: VGG19Features | None
     fake = fake.detach()
     d_fake, d_real, d_total = _discriminator_losses(state, guide, fake, b["warped"])
     d_total.backward()
-    all_reduce_mean_((p.grad for p in itertools.chain(g.parameters(), d.parameters())),
-                     state.group)
-    _update(state.opt_g, state.lr_g(state.step), g.parameters(), cfg.clip_grad_norm)
-    _update(state.opt_d, state.lr_d(state.d_step), d.parameters(), cfg.clip_grad_norm)
+    mean_grads_(itertools.chain(g.parameters(), d.parameters()), state.group, state.mesh)
+    _update(state, state.opt_g, state.lr_g(state.step), g.parameters())
+    _update(state, state.opt_d, state.lr_d(state.d_step), d.parameters())
     state.step += 1
     state.d_step += 1
     return _detached({**g_losses, "loss_G": g_total, "D_Fake": d_fake, "D_real": d_real,

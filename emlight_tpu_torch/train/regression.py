@@ -25,7 +25,10 @@ dist/mesh.py RankGroup), ``train_step`` averages the gradients over the
 ranks before clipping and the update, and ``loss_fn`` takes the Sinkhorn
 diameter over the global batch and scales the rank's EMD sum by the rank
 count, so that the averaged gradient is the global batch's sum
-(emlight_tpu/train/regression.py:143).
+(emlight_tpu/train/regression.py:143). On a (data, model) grid
+(dist/auto.py's ``auto_shard_state``, which sets ``state.mesh``) the
+regressor runs whole on every model rank over its data rows, and its
+gradients are averaged over the whole grid (dist/mesh.py::mean_grads_).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch
 
 from ..config import RegressionConfig
 from ..core.device import resolve_device
-from ..dist.mesh import all_reduce_mean_, mean_metrics
+from ..dist.mesh import mean_grads_, mean_metrics
 from ..losses.sinkhorn import SamplesLoss
 from ..nn import densenet_fast as DF
 from ..nn.densenet import DenseNet, fold_eval_variables
@@ -152,9 +155,10 @@ def predict(model: DenseNet, crop: torch.Tensor, apply_fn: Callable | None = Non
 @dataclasses.dataclass
 class RegressionState:
     """The model (its parameters and BatchNorm running statistics), Adam,
-    the step count, the forward (``apply_fn(model, crop, train)``) and the
-    ranks' group (None on one device). ``train_step`` updates the first
-    three in place."""
+    the step count, the forward (``apply_fn(model, crop, train)``), the
+    ranks' group (None on one device) and the (data, model) grid
+    dist/auto.py placed the state on (None otherwise). ``train_step``
+    updates the first three in place."""
 
     cfg: RegressionConfig
     model: DenseNet
@@ -162,6 +166,7 @@ class RegressionState:
     step: int = 0
     apply_fn: Callable = standard_apply
     group: object = None
+    mesh: object = None
 
 
 def create_state(cfg: RegressionConfig, device=None, seed: int = 0,
@@ -228,7 +233,7 @@ def train_step(state: RegressionState, batch: dict) -> dict:
     state.opt.zero_grad(set_to_none=True)
     total, metrics, _ = loss_fn(model, batch, cfg, True, state.apply_fn, state.group)
     total.backward()
-    all_reduce_mean_((p.grad for p in model.parameters()), state.group)
+    mean_grads_(model.parameters(), state.group, state.mesh)
     metrics = {k: v.detach() for k, v in metrics.items()}
     if cfg.log_grad_norms:
         # the reference's gradient probes (panorama.py:41-64) as metrics

@@ -1,15 +1,18 @@
-"""Run chip_smoke.py's phase 16d (tensor-parallel serving, run_auto) alone.
+"""Run chip_smoke.py's phase 16d (tensor-parallel serving, run_auto) and
+phase 16e (tensor-parallel training, run_auto_train) alone.
 
-    python scripts/chip_auto.py [--seed 0] [--out FILE]
+    python scripts/chip_auto.py [--seed 0] [--phase 16d|16e|both] [--out FILE]
 
-Builds the kernels, the main path's seeded models (RegressionConfig() and
-ProjectorConfig(), chip_smoke.py's seeds) and phase 4's first request of 8
-crops, then runs run_auto: dp1 x tp2 over NCCL on two cards (else two
-ranks sharing card 0 over gloo) and dp2 x tp2 over NCCL where there are
-four cards. Use it for the NCCL grids on a host with four cards without
-the rest of chip_smoke.py. Prints the card, phase 16d's lines and one JSON
-line of its results; --out writes them, B1's per-shape rows included.
-Exits non-zero without CUDA.
+Builds the kernels; for 16d the main path's seeded models
+(RegressionConfig() and ProjectorConfig(), chip_smoke.py's seeds) and
+phase 4's first request of 8 crops, then runs run_auto: dp1 x tp2 over
+NCCL on two cards (else two ranks sharing card 0 over gloo) and dp2 x tp2
+over NCCL where there are four cards; for 16e run_auto_train on the same
+grids, then fullsize_check (--devices 1 --tp 1, and --devices 4 --tp 2
+with four cards). Use it for the NCCL grids on a host with four cards
+without the rest of chip_smoke.py. Prints the card, the phases' lines and
+one JSON line of their results; --out writes them, the per-shape rows
+included. Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default=None, help="write run_auto's results here as JSON")
+    ap.add_argument("--phase", choices=("16d", "16e", "both"), default="16d")
+    ap.add_argument("--out", default=None, help="write the phases' results here as JSON")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -62,13 +66,20 @@ def main(argv=None) -> int:
         return torch.from_numpy(crop_reg).to(dev), torch.from_numpy(crop_proj).to(dev)
 
     crops(1)  # main's warm-up request
-    out = C.run_auto(torch, np, dev, args.seed, smi, regressor, generator, reg_cfg, proj_cfg,
-                     crops(C.BATCH))
+    out = {}
+    if args.phase in ("16d", "both"):
+        out["auto"] = C.run_auto(torch, np, dev, args.seed, smi, regressor, generator, reg_cfg,
+                                 proj_cfg, crops(C.BATCH))
+    del regressor, generator
+    torch.cuda.empty_cache()
+    if args.phase in ("16e", "both"):
+        out["auto_train"] = C.run_auto_train(torch, np, dev, args.seed, smi)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"device": smi, **out}, f, indent=1)
-    C.log(json.dumps({k: v for k, v in out.items() if k != "b1_shapes"}))
+    C.log(json.dumps({phase: {k: v for k, v in res.items() if k not in ("b1_shapes", "shapes")}
+                      for phase, res in out.items()}))
     return 0
 
 

@@ -28,6 +28,7 @@ from emlight_tpu.train import regression as R
 from emlight_tpu.train.data import synthetic_projector_batch
 from emlight_tpu.train.pipeline import pipeline_inference as j_pipeline
 from emlight_tpu_torch.dist import auto as A
+from emlight_tpu_torch.dist import fullsize_check
 from emlight_tpu_torch.dist.mesh import RankGroup, make_mesh
 from emlight_tpu_torch.nn.layers import spectral_sigma
 from emlight_tpu_torch.nn.spade import SPADEResnetBlock
@@ -297,10 +298,12 @@ def test_fused_gamma_beta_and_mlp_shared_split_by_part():
 
 def test_grid_and_placement_refusals(monkeypatch):
     """make_mesh refuses a world that does not divide by tp, and tp > 1
-    without ranks; a split conv refuses train mode; auto_shard_state
-    refuses other modules and a second placement; the serving functions
-    refuse a generator placed on another mesh or left in train mode, and a
-    CUDA request without CUDA."""
+    without ranks; auto_shard_state refuses other modules, a second
+    placement and a train state built over another group than the mesh's
+    data group; the train steps refuse a state not placed on their mesh;
+    fullsize_check refuses more --devices than cards (nothing spawned); the
+    serving functions refuse a generator placed on another mesh or left in
+    train mode, and a CUDA request without CUDA."""
     with pytest.raises(ValueError, match="not divisible"):
         make_mesh(RankGroup(pg=None, rank=0, size=4), 3)
     with pytest.raises(ValueError, match="needs a group"):
@@ -319,9 +322,20 @@ def test_grid_and_placement_refusals(monkeypatch):
         A.make_auto_inference(cfg, make_mesh(None))(gen, {})
     with pytest.raises(RuntimeError, match="eval mode"):
         A.make_auto_inference(cfg, one)(gen.train(), {})
-    with pytest.raises(RuntimeError, match="not ported yet"):
-        gen.sphere_conv1(torch.zeros(1, 4, 8, 2))
     gen.eval()
+    with pytest.raises(ValueError, match="not built over this mesh's data group"):
+        A.auto_shard_state(TP.create_state(cfg, device="cpu",
+                                           group=RankGroup(pg=None, rank=0, size=1)), one)
+    state = A.auto_shard_state(TP.create_state(cfg, device="cpu"), one)
+    with pytest.raises(ValueError, match="not placed on this mesh"):
+        A.make_auto_projector_steps(cfg, make_mesh(None))[2](state, {})
+    reg_cfg = port_regression_cfg(PIPE_REG)
+    with pytest.raises(ValueError, match="not placed on this mesh"):
+        A.make_auto_regression_step(reg_cfg, one)(TR.create_state(reg_cfg, device="cpu"), {})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="--devices 4: 1 card"):
+        fullsize_check.main(["--devices", "4", "--tp", "2"])
     reg = TR.make_model(port_regression_cfg(PIPE_REG), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -16,7 +16,10 @@ compares into WORK/rank{RANK}.pickle. JOBs:
 - ``cli``: each command line of inputs["argvs"] through its CLI's main
   with --parallel, inside this group;
 - ``auto``: tests/test_torch_auto.py's (tensor-parallel serving over the
-  dp2 x tp2 and dp1 x tp4 grids of 4 ranks).
+  dp2 x tp2 and dp1 x tp4 grids of 4 ranks);
+- ``auto_train``: tests/test_torch_auto_train.py's (tensor-parallel
+  training over the same grids, the differentiable collectives and
+  fullsize_check's rank body).
 
 ``start_ranks`` and ``wait_ranks`` are the test side: they start the
 ranks with torchrun's environment and join them with a deadline.
@@ -251,6 +254,116 @@ def check_auto(inp, group, mesh):
     return out
 
 
+def _sliced(model):
+    """name -> the channels of the whole leaf this rank holds, for every
+    kernel, bias and u of a split ColumnSphereConv (the other leaves, and
+    the sliced norms' statistics, which hold contiguous slices, are not
+    listed)."""
+    from emlight_tpu_torch.dist.auto import ColumnSphereConv
+
+    return {f"{n}.{leaf}": m.channels for n, m in model.named_modules()
+            if isinstance(m, ColumnSphereConv) and m.split for leaf in ("kernel", "bias", "u")}
+
+
+def _gather_checks(grids, mesh):
+    """all_gather_channels and split_channels forward and backward on small
+    tensors: rank m's slice of the gathered tensor and its gradient under a
+    loss whose weights differ by model rank (split readers: the cotangents
+    are summed) or not (a whole reader: sliced alone); by part over tp 2."""
+    import torch
+
+    out = {}
+    model = grids["dp1xtp4"].model
+    m = model.rank
+    for name, reader_split in (("split_reader", True), ("whole_reader", False)):
+        x = (torch.arange(6.0).reshape(2, 3) + 10 * m).requires_grad_(True)
+        y = mesh.all_gather_channels(x, model, partial_grad=reader_split)
+        w = torch.arange(24.0).reshape(2, 12) * ((m + 1) if reader_split else 1)
+        (y * w).sum().backward()
+        out[name] = dict(y=y.detach(), grad=x.grad)
+    x = torch.arange(16.0).reshape(2, 8).requires_grad_(True)
+    y = mesh.split_channels(x, model)
+    (y * (m + 1)).sum().backward()
+    out["split"] = dict(y=y.detach(), grad=x.grad)
+    model = grids["dp2xtp2"].model
+    x = (torch.arange(6.0)[None] + 10 * model.rank).requires_grad_(True)
+    y = mesh.all_gather_channels(x, model, parts=2, partial_grad=(True, False))
+    w = torch.arange(12.0)[None] * torch.tensor([model.rank + 1.0] * 6 + [1.0] * 6)
+    (y * w).sum().backward()
+    out["by_part"] = dict(y=y.detach(), grad=x.grad)
+    return out
+
+
+def check_auto_train(inp, group, mesh):
+    """tests/test_torch_auto_train.py's multi-rank checks on 4 ranks: on the
+    dp2 x tp2 and dp1 x tp4 grids (make_mesh; every rank creates every
+    subgroup) a regression step and a fused G+D step from the test's
+    weights (their states built over the grid's data group and placed with
+    auto_shard_state), with the metrics, the averaged gradients, the state
+    after the step, each split leaf's channels, the collectives of the
+    fused step and the placed G's global gradient norm before and after
+    clipping to half of it; on dp2 x tp2 a G then a D step from seed 2;
+    the differentiable collectives; fullsize_check's rank body at the
+    test's size."""
+    import torch
+
+    from emlight_tpu_torch.dist import auto as A
+    from emlight_tpu_torch.dist.fullsize_check import run_rank
+    from emlight_tpu_torch.train import projector as TP
+    from emlight_tpu_torch.train import regression as TR
+    from emlight_tpu_torch.train.optim import clip_by_global_norm, grads_global_norm
+
+    grids = {name: mesh.make_mesh(group, tp) for name, tp in (("dp2xtp2", 2), ("dp1xtp4", 4))}
+    gan_cfg = inp["gan_cfg"]
+
+    def gan_state(grid, seed=0, sds=None):
+        state = TP.create_state(gan_cfg, device="cpu", seed=seed, group=grid.data)
+        if sds is not None:
+            state.g.load_state_dict(sds[0], strict=True)
+            state.d.load_state_dict(sds[1], strict=True)
+        return A.auto_shard_state(state, grid)
+
+    def whole_leaves(*models):
+        return {f"{i}.{n}": p.detach().clone() for i, mod in enumerate(models)
+                for n, p in mod.named_parameters() if not mesh.is_model_split(p)}
+
+    out = {}
+    for name, grid in grids.items():
+        reg = TR.create_state(inp["reg_cfg"], device="cpu", group=grid.data)
+        reg.model.load_state_dict(inp["reg_sd"], strict=True)
+        A.auto_shard_state(reg, grid)
+        metrics = A.make_auto_regression_step(inp["reg_cfg"], grid)(
+            reg, A.auto_shard_batch(inp["reg_batch"], grid))
+        o = dict(data=(grid.data.rank, grid.data.size), model=(grid.model.rank, grid.model.size),
+                 reg=dict(metrics=metrics, state=_state(reg.model), grads=_grads(reg.model)))
+        state = gan_state(grid, sds=(inp["g_sd"], inp["d_sd"]))
+        _, _, fused = A.make_auto_projector_steps(gan_cfg, grid)
+        mesh.all_gather_channels.calls = mesh.all_gather_channels.grad_calls = 0
+        mesh.split_channels.grad_calls = 0
+        metrics, fake = fused(state, A.auto_shard_batch(inp["gan_batch"], grid))
+        o["fused"] = dict(
+            metrics=metrics, fake=fake, g_grads=_grads(state.g), d_grads=_grads(state.d),
+            g_state=_state(state.g), d_state=_state(state.d), sliced=_sliced(state.g),
+            collectives=(mesh.all_gather_channels.calls, mesh.all_gather_channels.grad_calls,
+                         mesh.split_channels.grad_calls),
+            whole=whole_leaves(state.g, state.d), step=(state.step, state.d_step))
+        norm = grads_global_norm(state.g.parameters(), grid.model)
+        clip_by_global_norm(state.g.parameters(), norm.item() / 2, grid.model)
+        o["norm"] = (norm, grads_global_norm(state.g.parameters(), grid.model))
+        out[name] = o
+    grid = grids["dp2xtp2"]
+    state = gan_state(grid, seed=2)
+    g_step, d_step, _ = A.make_auto_projector_steps(gan_cfg, grid)
+    batch = A.auto_shard_batch(inp["alt_batch"], grid)
+    g_metrics, fake = g_step(state, batch)
+    d_metrics = d_step(state, batch)
+    out["alternating"] = dict(metrics={**g_metrics, **d_metrics}, fake_shape=tuple(fake.shape),
+                              step=state.step, whole=whole_leaves(state.g, state.d))
+    out["gathers"] = _gather_checks(grids, mesh)
+    out["fullsize"] = run_rank(group, torch.device("cpu"), **inp["fullsize"])
+    return out
+
+
 def run_cli(inp, group, mesh):
     import importlib
 
@@ -297,6 +410,8 @@ def main(work: str, job: str) -> None:
             out = check_gan(inp, group, mesh)
         elif job == "auto":
             out = check_auto(inp, group, mesh)
+        elif job == "auto_train":
+            out = check_auto_train(inp, group, mesh)
         else:
             out = run_cli(inp, group, mesh)
         mesh.barrier(group)
